@@ -1,0 +1,59 @@
+"""Clip and stream I/O for programs that drive the port.
+
+The clip format (y4m VideoFormat), the IVF container and the dav1d
+conformance decoder are the JAX package's jax-free host modules; they
+are re-exported here so that a program imports the port alone. The one
+helper of its own is the conformance check every port encode shares:
+decode the stream with dav1d and hold each frame against the encoder's
+reconstruction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+
+from svt_av1_psyex_tpu.conformance.dav1d import decode_ivf
+from svt_av1_psyex_tpu.utils.ivf import IvfWriter
+from svt_av1_psyex_tpu.utils.y4m import VideoFormat
+
+__all__ = ["IvfWriter", "VideoFormat", "decode_ivf", "dav1d_loads",
+           "write_ivf", "dav1d_mismatches"]
+
+
+def dav1d_loads() -> bool:
+    """Whether libdav1d.so.6, which the conformance shim links, loads."""
+    try:
+        ctypes.CDLL("libdav1d.so.6")
+    except OSError:
+        return False
+    return True
+
+
+def write_ivf(path: Path, tus: list, width: int, height: int) -> Path:
+    """Write one TU per frame into an IVF file at `path`."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as fh:
+        wr = IvfWriter(fh, width, height)
+        for t, tu in enumerate(tus):
+            wr.write_frame(tu, t)
+        wr.close()
+    return path
+
+
+def dav1d_mismatches(path: Path, tus: list, recons: list, width: int,
+                     height: int) -> list[int]:
+    """Decode `tus` with dav1d (via an IVF at `path`) and return the
+    indices of the frames whose output differs from `recons` (per frame,
+    the encoder's planes, cropped to the decoded size). Raises if dav1d
+    outputs another number of frames."""
+    dec = decode_ivf(write_ivf(path, tus, width, height))
+    if len(dec) != len(recons):
+        raise RuntimeError(f"dav1d decoded {len(dec)} frames, the encoder "
+                           f"made {len(recons)}")
+    return [i for i, (d, r) in enumerate(zip(dec, recons))
+            if not all(np.array_equal(dp, rp[: dp.shape[0], : dp.shape[1]])
+                       for dp, rp in zip(d, r))]

@@ -60,3 +60,15 @@ def fullloop_impl(kernels: str = "hand"):
     from .ops.cuda.fullloop import fullloop
 
     return fullloop
+
+
+def sad_impl(kernels: str = "hand"):
+    """The sad_lattice implementation for `kernels`, as fullloop_impl."""
+    check_kernels(kernels)
+    if kernels == "plain":
+        from .ops.sad_ref import sad_lattice_ref
+
+        return sad_lattice_ref
+    from .ops.cuda.sad import sad_lattice
+
+    return sad_lattice

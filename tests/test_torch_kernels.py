@@ -1,8 +1,10 @@
-"""The port's kernel wrappers and registry, without JAX: the plain fullloop
-version's edge cases, the wrapper's CPU path, device handling, and the
-hand-written CUDA kernel against its plain version on the card (tests
-marked `cuda`: they skip without a card, and this file needs no JAX, so
-they also run where JAX is not installed).
+"""The port's kernel wrappers and registry, without JAX: the plain
+versions' edge cases, the wrappers' CPU path, device handling, and the
+hand-written CUDA kernels (fullloop, sad_lattice) against their plain
+versions on the card (tests marked `cuda`: they skip without a card, and
+this file needs no JAX, so they also run where JAX is not installed).
+
+The sad_lattice contract is bit-exactness: the lattice is integer.
 
 The fullloop contract (assert_contract) is the one tests/test_pallas.py
 :64-75 holds the Pallas kernel to against the jnp chain: the analysis
@@ -19,7 +21,9 @@ torch = pytest.importorskip("torch")
 from svt_av1_psyex_tpu_torch import runtime  # noqa: E402
 from svt_av1_psyex_tpu_torch.device.intra import qp6_for, qp_row_for  # noqa: E402
 from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop  # noqa: E402
+from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad  # noqa: E402
 from svt_av1_psyex_tpu_torch.ops.fullloop_ref import fullloop_ref  # noqa: E402
+from svt_av1_psyex_tpu_torch.ops.sad_ref import sad_lattice_ref  # noqa: E402
 
 B = 150  # not a multiple of any kernel tile: exercises the ragged edge
 
@@ -82,11 +86,56 @@ def test_wrapper_on_cpu_runs_plain_version():
     assert cuda_fullloop.launches == before
 
 
+def sad_inputs(nsb, bit_depth=8, seed=0):
+    """Seeded SB tiles and windows; at 10 bits up to 1023."""
+    rng = np.random.RandomState(seed)
+    hi = 1 << bit_depth
+    return (rng.randint(0, hi, (nsb, 64, 64)).astype(np.int32),
+            rng.randint(0, hi, (nsb, 80, 80)).astype(np.int32))
+
+
+def sad_brute(tile, win):
+    """One SB's lattice straight from the definition (numpy)."""
+    out = np.empty((289, 8, 8), np.int64)
+    for dy in range(17):
+        for dx in range(17):
+            d = np.abs(tile - win[dy: dy + 64, dx: dx + 64])
+            out[dy * 17 + dx] = d.reshape(8, 8, 8, 8).sum(axis=(1, 3))
+    return out
+
+
+def test_sad_plain_matches_definition_and_empty_batch():
+    tiles, wins = sad_inputs(2, 10, seed=3)
+    got = sad_lattice_ref(torch.from_numpy(tiles), torch.from_numpy(wins))
+    assert got.dtype == torch.int32 and got.shape == (2, 289, 8, 8)
+    for i in range(2):
+        assert np.array_equal(got[i].numpy(), sad_brute(tiles[i], wins[i]))
+    # other integer types are cast to int32
+    u8 = sad_lattice_ref(torch.from_numpy(tiles.astype(np.int16)),
+                         torch.from_numpy(wins.astype(np.int16)))
+    assert torch.equal(u8, got)
+    empty = sad_lattice_ref(torch.zeros((0, 64, 64), dtype=torch.int32),
+                            torch.zeros((0, 80, 80), dtype=torch.int32))
+    assert empty.shape == (0, 289, 8, 8)
+
+
+def test_sad_wrapper_on_cpu_runs_plain_version():
+    tiles, wins = (torch.from_numpy(a) for a in sad_inputs(3))
+    before = cuda_sad.launches
+    assert torch.equal(cuda_sad.sad_lattice(tiles, wins),
+                       sad_lattice_ref(tiles, wins))
+    assert cuda_sad.launches == before
+
+
 def test_registry_and_device_handling(monkeypatch):
     assert runtime.fullloop_impl("plain") is fullloop_ref
     assert runtime.fullloop_impl("hand") is cuda_fullloop.fullloop
+    assert runtime.sad_impl("plain") is sad_lattice_ref
+    assert runtime.sad_impl("hand") is cuda_sad.sad_lattice
     with pytest.raises(ValueError):
         runtime.fullloop_impl("triton")
+    with pytest.raises(ValueError):
+        runtime.sad_impl("triton")
     with pytest.raises(ValueError):
         runtime.resolve_device(None)
     with pytest.raises(ValueError):
@@ -179,3 +228,82 @@ def test_lattice_kernel_vs_plain_on_card(cuda_device):
             a, b = out["hand", psy][blk], out["plain", psy][blk]
             assert np.mean(a["mode"] == b["mode"]) >= 0.98, (psy, blk)
             assert np.allclose(a["j"], b["j"], rtol=5e-3, atol=50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bit_depth", [8, 10])
+@pytest.mark.parametrize("nsb", [1, 7, 240, 510])
+def test_sad_kernel_matches_plain_on_card(cuda_device, nsb, bit_depth):
+    """Bit-exact at an off-tile batch and at the 720p (240 SBs) and 1080p
+    (510 SBs) frames' batches."""
+    tiles, wins = (torch.from_numpy(a).to(cuda_device)
+                   for a in sad_inputs(nsb, bit_depth, seed=nsb))
+    before = cuda_sad.launches
+    got = cuda_sad.sad_lattice(tiles, wins)
+    torch.cuda.synchronize()
+    assert cuda_sad.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (nsb, 289, 8, 8)
+    assert torch.equal(got, sad_lattice_ref(tiles, wins))
+
+
+@pytest.mark.cuda
+def test_sad_kernel_edges_and_bad_input_on_card(cuda_device):
+    z = dict(dtype=torch.int32, device=cuda_device)
+    empty = cuda_sad.sad_lattice(torch.zeros((0, 64, 64), **z),
+                                 torch.zeros((0, 80, 80), **z))
+    assert empty.shape == (0, 289, 8, 8) and empty.dtype == torch.int32
+    # the extremes: 1023 against 0 everywhere
+    hi = cuda_sad.sad_lattice(torch.full((2, 64, 64), 1023, **z),
+                              torch.zeros((2, 80, 80), **z))
+    assert bool((hi == 64 * 1023).all())
+    tiles, wins = torch.zeros((2, 64, 64), **z), torch.zeros((2, 80, 80), **z)
+    with pytest.raises(ValueError):
+        cuda_sad.sad_lattice(tiles, wins[:1])
+    with pytest.raises(ValueError):
+        cuda_sad.sad_lattice(tiles[:, :32], wins)
+    with pytest.raises(ValueError):
+        cuda_sad.sad_lattice(tiles, wins.transpose(1, 2))
+    with pytest.raises(ValueError):
+        cuda_sad.sad_lattice(tiles, wins.cpu())
+    with pytest.raises(TypeError):
+        cuda_sad.sad_lattice(tiles.to(torch.int16), wins)
+
+
+@pytest.mark.cuda
+def test_inter_lattice_kernels_vs_plain_on_card(cuda_device):
+    """The fused inter analysis on the card through the kernels and
+    through the plain versions: ME (integer) equal, the winning candidate
+    agreeing on >= 98% of every depth's blocks (a coefficient on a
+    quantization boundary may round to the other level)."""
+    from svt_av1_psyex_tpu_torch.device import inter, me
+
+    rng = np.random.RandomState(5)
+    big = np.add.outer(np.linspace(30, 220, 320),
+                       np.linspace(0, 90, 448)).astype(np.int32)
+    big = np.clip(big + rng.randint(-12, 13, big.shape), 0, 255)
+    src = big[:256, :384].astype(np.uint8)
+    refs = np.stack([big[3:259, 5:389], big[40:296, 60:444]]).astype(np.uint8)
+    x = torch.from_numpy(src).to(cuda_device)
+    r = torch.from_numpy(refs).to(cuda_device)
+    rows = [me.me_fullpel(x, r, kernels=k) for k in ("hand", "plain")]
+    assert torch.equal(rows[0], rows[1])
+    qp = qp_row_for(120, 0, 0, 8)
+    rd = np.concatenate([[3467, 200, 900], [600, 1100, 1100, 1500, 1700,
+                                            1700, 1600],
+                         [1900, 2050] + [1 << 28] * 6,
+                         [1400, 1550] + [1 << 28] * 6, [3500, 2900], [77]])
+    depths = (64, 32, 16, 8)
+    out = {}
+    for kernels in ("hand", "plain"):
+        packed = inter.inter_analysis(x, r, qp, rd.astype(np.int32),
+                                      depths=depths, psy=True,
+                                      kernels=kernels)
+        out[kernels] = inter.unpack_inter_analysis(packed.cpu().numpy(),
+                                                   256, 384, depths)
+    for blk in depths:
+        a, b = out["hand"][blk], out["plain"][blk]
+        assert np.mean(a["cand"] == b["cand"]) >= 0.98, blk
+        same = a["cand"] == b["cand"]
+        for f in ("mv_y", "mv_x", "mv_y1", "mv_x1"):
+            assert np.array_equal(a[f][same], b[f][same]), (blk, f)
+        assert np.allclose(a["j"], b["j"], rtol=5e-3, atol=50)

@@ -1,6 +1,9 @@
-"""The ported slice end to end: svt_av1_psyex_tpu_torch's
-Av1Encoder.encode_keyframes against the JAX package's on the same clip
-(tools/mkclip "blobs", 200x120, 3 frames, preset 12, qindex 140).
+"""The ported slices end to end: svt_av1_psyex_tpu_torch's Av1Encoder
+against the JAX package's on the same clip (tools/mkclip "blobs",
+200x120): encode_keyframes (3 frames, preset 12, qindex 140), and a
+keyframe plus one 4-frame random-access mini-GOP (preset 8, qindex 120)
+through begin_frame / resume_frame, whose inter frames run the fused
+inter analysis.
 
 On the CPU the port's analysis runs the plain PyTorch version of each
 kernel and the JAX package's runs its jnp chain; both feed the same host
@@ -88,31 +91,148 @@ def test_plain_kernels_give_the_same_stream(encodes):
     assert enc.encode_keyframes(_frames(), QINDEX) == port_tus
 
 
-def test_inter_frames_not_ported():
+GOP_PRESET, GOP_QINDEX, GOP_LEN = 8, 120, 4
+
+
+def encode_gop(enc_cls, preset=GOP_PRESET, **kwargs):
+    """KF + one 4-frame RA mini-GOP (plan_minigop(0, 1, 4, future_slot=1))
+    of the 200x120 "blobs" clip, driven as the JAX package's API drives it
+    (codec.encoder.encode_plans). Returns (encoder, TUs, display-order
+    recons); enc.dmds holds the device MDs of the coded frames."""
+    from svt_av1_psyex_tpu.codec.gop import plan_minigop
+
+    from svt_av1_psyex_tpu_torch.codec.encoder import (
+        SequenceConfig, encode_plans)
+
+    class Recording(enc_cls):
+        def _begin_frame_impl(self, *a, **k):
+            st = super()._begin_frame_impl(*a, **k)
+            if isinstance(st, dict):
+                self.dmds.append(st["dmd"])
+            return st
+
+    frames = _frames(n=GOP_LEN + 1)
+    enc = Recording(SequenceConfig(width=W, height=H), preset=preset,
+                    **kwargs)
+    enc.dmds = []
+    tus = [enc.encode_frame(frames[0], GOP_QINDEX, force_key=True)]
+    recons = [enc.last_recon]
+    more, shown = encode_plans(enc, plan_minigop(0, 1, GOP_LEN,
+                                                 future_slot=1),
+                               dict(enumerate(frames)), GOP_QINDEX)
+    return enc, tus + more, recons + shown
+
+
+@pytest.fixture(scope="module")
+def gop_encodes():
+    from svt_av1_psyex_tpu.codec.encoder import Av1Encoder as JaxEncoder
+
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder
+
+    return encode_gop(Av1Encoder, device="cpu"), encode_gop(JaxEncoder)
+
+
+def test_gop_streams_byte_identical(gop_encodes):
+    """The port's KF + mini-GOP TUs equal the JAX package's byte for byte;
+    every inter frame ran the port's device inter MD, one of them with a
+    legal compound pair."""
+    from svt_av1_psyex_tpu_torch.codec.md_device import (
+        DeviceInterMD, DeviceIntraMD)
+
+    (port, port_tus, port_recons), (_, ref_tus, ref_recons) = gop_encodes
+    assert len(port_tus) == len(ref_tus) == 7    # KF, 4 coded, 2 shown
+    for i, (a, b) in enumerate(zip(port_tus, ref_tus)):
+        assert a == b, f"TU {i}: differs from the JAX package's"
+    assert len(port_recons) == GOP_LEN + 1
+    for p, q in zip(port_recons, ref_recons):
+        for a, b in zip(p, q):
+            assert np.array_equal(a, b)
+    assert isinstance(port.dmds[0], DeviceIntraMD)
+    inter = port.dmds[1:]
+    assert len(inter) == GOP_LEN
+    assert all(isinstance(d, DeviceInterMD) for d in inter)
+    assert any(d.comp_pair is not None for d in inter)
+
+
+def test_gop_decodes_to_recon(gop_encodes, tmp_path):
+    """dav1d decodes every displayed frame to the port's recon, on all
+    three planes."""
+    from svt_av1_psyex_tpu_torch.streams import dav1d_loads, dav1d_mismatches
+
+    if not dav1d_loads():
+        pytest.skip("dav1d shim unavailable (libdav1d.so.6 does not load)")
+    _, tus, recons = gop_encodes[0]
+    assert all(len(r) == 3 for r in recons)
+    assert dav1d_mismatches(tmp_path / "gop.ivf", tus, recons, W, H) == []
+
+
+def test_gop_at_preset_6_byte_identical(tmp_path):
+    """Preset 6 adds the commit-time interpolation-filter trial and the
+    tx-depth search to the device inter path (loop restoration, which
+    preset 6 turns on, is not ported and is turned off on both sides)."""
+    from svt_av1_psyex_tpu.codec.encoder import Av1Encoder as JaxEncoder
+
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder
+    from svt_av1_psyex_tpu_torch.streams import dav1d_loads, dav1d_mismatches
+
+    port, tus, recons = encode_gop(Av1Encoder, preset=6, device="cpu",
+                                   enable_restoration=False)
+    _, ref_tus, _ = encode_gop(JaxEncoder, preset=6,
+                               enable_restoration=False)
+    assert tus == ref_tus
+    assert any(d.fr.interp_filter == 4 for d in port.dmds[1:])
+    if dav1d_loads():
+        assert dav1d_mismatches(tmp_path / "p6.ivf", tus, recons, W,
+                                H) == []
+
+
+def test_host_md_inter_frame_uses_port_motion_field():
+    """Where the device MD does not run (presets <= 5, or its gates off),
+    an inter frame's host MD gets the port's ME field (the copied
+    _begin_frame_impl's run_device_me), equal to the JAX package's."""
+    from svt_av1_psyex_tpu.device.me import run_device_me as jax_me
+
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
+    from svt_av1_psyex_tpu_torch.device.me import FrameMotionField
+
+    frames = _frames(n=2)
+    enc = Av1Encoder(SequenceConfig(width=W, height=H), preset=GOP_PRESET,
+                     device="cpu")
+    enc.encode_frame(frames[0], GOP_QINDEX, force_key=True)
+    enc._device_md_precheck = lambda: False
+    st = enc.begin_frame(frames[1], GOP_QINDEX)
+    field = st["md"].me_field
+    assert st["dmd"] is None and isinstance(field, FrameMotionField)
+    want = jax_me(st["pctx"][0].src,
+                  {n: p[0] for n, p in st["ref_planes"].items()})
+    assert sorted(field.maps) == sorted(want.maps) == [1]
+    for geo, m in field.maps[1].items():
+        assert np.array_equal(m["mv"], want.maps[1][geo]["mv"]), geo
+        assert np.array_equal(m["sad"], want.maps[1][geo]["sad"]), geo
+
+
+def test_loop_restoration_not_ported():
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
-    enc = Av1Encoder(SequenceConfig(width=64, height=64), preset=PRESET,
-                     device="cpu")
-    frames = _frames(64, 64, 2)
-    enc.encode_frame(frames[0], QINDEX, force_key=True)
-    with pytest.raises(NotImplementedError):
-        enc.encode_frame(frames[1], QINDEX)
     with pytest.raises(NotImplementedError):
         Av1Encoder(SequenceConfig(width=64, height=64), preset=4,
                    device="cpu")
 
 
 def test_port_encode_imports_no_jax():
-    """A process that encodes through the port never imports jax (this
-    test process has it: the repository's conftest.py imports it)."""
+    """A process that encodes through the port, a keyframe group and then
+    the KF + mini-GOP of test_gop_streams_byte_identical, never imports
+    jax (this test process has it: the repository's conftest.py imports
+    it)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(ROOT)!r})
         sys.path.insert(0, {str(ROOT / 'tools')!r})
         from fractions import Fraction
         from mkclip import synth_frame
+        from svt_av1_psyex_tpu.codec.gop import plan_minigop
         from svt_av1_psyex_tpu_torch.codec.encoder import (
-            Av1Encoder, SequenceConfig)
+            Av1Encoder, SequenceConfig, encode_plans)
         from svt_av1_psyex_tpu_torch.streams import VideoFormat
         fmt = VideoFormat(128, 64, fps=Fraction(30, 1))
         frames = [synth_frame(fmt, t) for t in range(2)]
@@ -120,6 +240,16 @@ def test_port_encode_imports_no_jax():
                          device="cpu")
         tus = enc.encode_keyframes(frames, 140)
         assert len(tus) == 2 and all(tus)
+        fmt = VideoFormat({W}, {H}, fps=Fraction(30, 1))
+        frames = [synth_frame(fmt, t, "blobs") for t in range({GOP_LEN + 1})]
+        enc = Av1Encoder(SequenceConfig(width={W}, height={H}),
+                         preset={GOP_PRESET}, device="cpu")
+        tus = [enc.encode_frame(frames[0], {GOP_QINDEX}, force_key=True)]
+        more, shown = encode_plans(
+            enc, plan_minigop(0, 1, {GOP_LEN}, future_slot=1),
+            dict(enumerate(frames)), {GOP_QINDEX})
+        assert len(more) == {GOP_LEN + 2} and all(more)
+        assert len(shown) == {GOP_LEN}
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
         print("ok")

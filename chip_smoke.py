@@ -16,7 +16,8 @@ order; any failure raises and the script exits non-zero without a result:
    (tests/test_pallas.py:64-75), with and without the inverse output, at
    an off-tile batch, at the batches the main paths give it (config 1;
    the 1080p encode of phase 6, whose 16 frames fold into one batch; the
-   inter candidates of phase 5, one 720p frame per launch) and, for
+   inter candidates of phase 5, one 720p frame per launch; TPL's float32
+   closed-loop residual of one 720p frame, n = 16, B = 3600) and, for
    n = 4, which those paths do not reach, at one 1080p frame's batch.
    sad_lattice bit-exact, with 8-bit and 10-bit samples, at an off-tile
    batch and at one 720p (240 superblocks) and one 1080p (510) frame.
@@ -43,9 +44,28 @@ order; any failure raises and the script exits non-zero without a result:
    a warm-up encode, then a timed one (fps, device analysis vs host
    stages), then the device analysis alone with the kernels and with
    the plain versions.
+7. config 2: BASELINE.json config 2 itself, "blobs" 1280x720 8-bit, 48
+   frames, through the port's SvtAv1Encoder (api/encoder.py) at preset
+   8, CRF 30, everything else at its default (random access, 16-frame
+   mini-GOPs, keyframe TF, ARF TF and TPL on). A warm-up on the first 9
+   frames (with the kernels and plain), then a timed run with the
+   kernels (the main path of this phase: both kernels' launch counts
+   are set to 0 before it and read after it) and one with
+   kernels="plain", under SVT_TPU_TIMING=1 ("tf" and "tpl" among the
+   stage seconds). The TUs must agree byte for byte; a differing TU
+   must have the same qindex in both runs (else both runs' TPL r0 are
+   printed and the phase fails) and >= 0.98 decision agreement per
+   depth. dav1d as in phase 4. Then TPL's dispenser alone on the first
+   24 frames, kernels vs plain (motion and the inter choice agree on
+   >= 0.99 of the blocks; the largest relative dist/rate difference is
+   printed), and the CLI (python -m svt_av1_psyex_tpu_torch.app.main
+   --device cuda) in a subprocess on the first 9 frames as y4m
+   (build/chip_smoke/config2.y4m): its IVF must equal the warm-up's API
+   packets. fps, stage seconds, the per-frame qindex of both runs,
+   bytes.
 
-Then a JSON line of the kernels ("launches": the count of the inter
-phase's kernel run; fullloop "ms"/"plain_ms": its device time summed
+Then a JSON line of the kernels ("launches": the count of phase 7's
+kernel run; fullloop "ms"/"plain_ms": its device time summed
 over its launches in one 1080p 16-frame analysis, "max_abs_err": the
 largest |inverse residual| difference against the plain version over
 every compared block; sad "ms"/"plain_ms": one launch at one 720p
@@ -74,6 +94,10 @@ HD = dict(w=1920, h=1080, frames=16, preset=12, qindex=140)
 # config 2 (720p p8, CRF 30 -> qindex 120) without TF and TPL
 INTER = dict(w=1280, h=720, frames=17, gop=16, warmup_gop=2, preset=8,
              qindex=120)
+# config 2 itself (720p 8-bit, p8, CRF 30) through the port's API, all 48
+# frames; TPL is held on the card on its first 24, the CLI runs its first 9
+CONFIG2 = dict(w=1280, h=720, frames=48, preset=8, crf=30, tpl_frames=24,
+               cli_frames=9)
 KERNELS = ("fullloop", "sad")
 REPLACES = {"fullloop": "svt_av1_psyex_tpu/ops/pallas/fullloop.py:151",
             "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69"}
@@ -121,9 +145,11 @@ def lattice_batch(cfg: dict, n: int, frames: int) -> int:
     return 7 * blocks(cfg, n) * frames
 
 
-def residuals(b: int, n: int, seed: int, device):
+def residuals(b: int, n: int, seed: int, device, f32: bool = False):
     """Intra-like residual blocks on the card (tests/test_pallas.py's
-    amplitudes); block 0 is all zero, whose eob must be 0."""
+    amplitudes); block 0 is all zero, whose eob must be 0. With f32, the
+    float32 residuals of a prediction from an unrounded float recon (TPL's
+    recrf): the same amplitudes plus a fraction in [-0.5, 0.5)."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -131,6 +157,9 @@ def residuals(b: int, n: int, seed: int, device):
                            dtype=torch.int32)
              + torch.randint(-2, 3, (b, n, n), generator=g, device=device,
                              dtype=torch.int32) * 40)
+    if f32:
+        resid = resid.to(torch.float32) + torch.rand(
+            (b, n, n), generator=g, device=device) - 0.5
     resid[0] = 0
     return resid
 
@@ -186,11 +215,14 @@ def phase_kernels(device) -> dict:
         if n in (16, 32):
             # one inter candidate of one 720p frame (with the inverse)
             cases.append(("720p-inter-candidate", blocks(INTER, n)))
+        if n == 16:
+            # TPL's closed-loop (recrf) residual of one 720p frame: f32
+            cases.append(("720p-TPL-f32", blocks(CONFIG2, n)))
         if n == 32:
             cases.append(("config-1", lattice_batch(CONFIG1, n,
                                                     CONFIG1["frames"])))
         for label, b in cases:
-            resid = residuals(b, n, 7 + n, device)
+            resid = residuals(b, n, 7 + n, device, f32=label.endswith("f32"))
             mk, ik = fullloop(resid, qp6, n, ls, want_inv=True)
             mp, ip = fullloop_ref(resid, qp6, n, ls, want_inv=True)
             mk0, none = fullloop(resid, qp6, n, ls, want_inv=False)
@@ -501,6 +533,224 @@ def phase_hd(device) -> None:
           f"{sum(map(len, tus))} bytes; {gate}", flush=True)
 
 
+def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
+    """The port's SvtAv1Encoder at config 2's settings (everything else
+    at its default, so keyframe TF, ARF TF and TPL are on; the clip's 30
+    fps), recording per packet the coded frame's (qindex, device MD), or
+    None for a show-existing packet, and the r0 of every TPL group."""
+    from svt_av1_psyex_tpu_torch.api.encoder import SvtAv1Encoder
+
+    class Recording(SvtAv1Encoder):
+        def init(self):
+            super().init()
+            self.coded, self.r0s, self._last = [], [], None
+            enc = self._enc
+            begin, resume = enc.begin_frame, enc.resume_frame
+
+            def begin_frame(*a, **k):
+                st = begin(*a, **k)
+                if not isinstance(st, dict):   # a show-existing TU
+                    self._last = None
+                return st
+
+            def resume_frame(st):
+                tu = resume(st)
+                self._last = (st["fr"].base_q_idx, st["dmd"])
+                return tu
+
+            enc.begin_frame, enc.resume_frame = begin_frame, resume_frame
+
+        def _run_tpl(self, look, base_qindex):
+            model = super()._run_tpl(look, base_qindex)
+            self.r0s.append([model.r0(i) for i in range(model.f)])
+            return model
+
+        def _emit(self, tu, pts, ftype, shown):
+            self.coded.append(self._last)
+            super()._emit(tu, pts, ftype, shown)
+
+    api = Recording(device=device, kernels=kernels)
+    c = api.config
+    c.source_width, c.source_height = cfg["w"], cfg["h"]
+    c.enc_mode, c.crf = cfg["preset"], cfg["crf"]
+    c.frame_rate_numerator, c.frame_rate_denominator = 30, 1
+    c.recon_enabled = recon
+    api.init()
+    check(c.enable_tf and c.kf_tf_strength > 0 and api._tpl_on(),
+          "config 2: TF, keyframe TF and TPL must be on at the defaults")
+    return api
+
+
+def api_encode(frames: list, cfg: dict, device, kernels: str,
+               recon: bool = False):
+    """All of `frames` through the port's API, then EOS. Returns (api,
+    packets, recons in display order, seconds)."""
+    api = recording_api(cfg, device, kernels, recon)
+    t0 = time.perf_counter()
+    for t, f in enumerate(frames):
+        api.send_picture(f, t)
+    api.send_picture(None)
+    pkts = []
+    while (p := api.get_packet()) is not None:
+        if not p.is_eos:
+            pkts.append(p)
+    dt = time.perf_counter() - t0
+    recons = {}
+    while recon and (r := api.get_recon()) is not None:
+        recons[r.pts] = r.planes
+    return api, pkts, [recons[t] for t in sorted(recons)], dt
+
+
+def tpl_on_card(frames: list, cfg: dict, device) -> str:
+    """TPL's dispenser on one 720p group with the kernels and with their
+    plain versions: motion and the inter choice agree on >= 0.99 of the
+    blocks. Returns the phase-line words (agreements, the largest
+    relative dist/rate difference, times)."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psyex_tpu_torch.codec.md_device import upload_lumas
+    from svt_av1_psyex_tpu_torch.device.intra import qp_row_for
+    from svt_av1_psyex_tpu_torch.device.me import _pad64
+    from svt_av1_psyex_tpu_torch.device.tpl import STAT_FIELDS, tpl_group_stats
+
+    n = cfg["tpl_frames"]
+    srcs = upload_lumas(np.stack([_pad64(f[0]) for f in frames[:n]]), 8,
+                        device)
+    qp = qp_row_for(cfg["crf"] * 4, 0, 0, 8)
+    out, ms = {}, {}
+    for kernels in ("hand", "plain", "plain", "hand"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[kernels] = tpl_group_stats(srcs, qp, 8, kernels).cpu().numpy()
+        ms.setdefault(kernels, []).append(
+            round((time.perf_counter() - t0) * 1e3, 3))
+    k, p = out["hand"], out["plain"]
+    words = []
+    for name in ("mv_y", "mv_x", "is_inter"):
+        i = STAT_FIELDS.index(name)
+        agree = float(np.mean(k[:, i] == p[:, i]))
+        check(agree >= 0.99, f"config 2 TPL: {name} agreement {agree}")
+        words.append(f"{name} {agree:.6f}")
+    for name in ("srcrf_dist", "recrf_dist", "srcrf_rate", "recrf_rate"):
+        i = STAT_FIELDS.index(name)
+        rel = np.abs(k[:, i] - p[:, i]) / np.maximum(np.abs(p[:, i]), 1.0)
+        words.append(f"{name} max rel {rel.max():.3g}")
+    return (f"TPL on {n} frames: kernels {ms['hand']} ms, plain "
+            f"{ms['plain']} ms (kernels/plain/plain/kernels order); "
+            f"agreement {', '.join(words)}; inter share "
+            f"{float(k[1:, STAT_FIELDS.index('is_inter')].mean()):.4f}")
+
+
+def cli_vs_api(frames: list, cfg: dict, device, api_pkts: list) -> str:
+    """The port's CLI on the clip's first frames as y4m, in a subprocess
+    on the card: its IVF frames must equal the API's packets
+    (`api_pkts`, the same frames in-process). The CLI's tune and
+    variance-octile defaults differ from the API's, so it is given the
+    API's."""
+    from svt_av1_psyex_tpu.utils.ivf import read_ivf
+    from svt_av1_psyex_tpu.utils.y4m import Y4MWriter
+
+    from svt_av1_psyex_tpu_torch.streams import VideoFormat
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    y4m, ivf = OUT_DIR / "config2.y4m", OUT_DIR / "config2_cli.ivf"
+    with open(y4m, "wb") as fh:
+        wr = Y4MWriter(fh, VideoFormat(cfg["w"], cfg["h"],
+                                       fps=Fraction(30, 1)))
+        for f in frames:
+            wr.write_frame(f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "svt_av1_psyex_tpu_torch.app.main",
+         "-i", str(y4m), "-b", str(ivf), "--device", str(device),
+         "--preset", str(cfg["preset"]), "--crf", str(cfg["crf"]),
+         "--tune", "0", "--variance-octile", "5", "--progress", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"config 2 CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(ivf, "rb") as fh:
+        got = list(read_ivf(fh))
+    check(got == [(p.pts, p.data) for p in api_pkts],
+          f"config 2 CLI: its {len(got)} IVF frames differ from the API's "
+          f"{len(api_pkts)} packets")
+    return (f"CLI on {len(frames)} frames: IVF equals the API's "
+            f"{len(got)} packets ({dt:.3f} s for the subprocess)")
+
+
+def phase_config2(device) -> dict:
+    """Phase 7: config 2 through the port's SvtAv1Encoder, kernels vs
+    plain; TPL on the card; the CLI. Returns the kernel run's launch
+    counts (the main path of this phase)."""
+    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
+    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
+
+    cfg = CONFIG2
+    frames = make_frames(cfg)
+    # warm-up: the CLI's frames, with the kernels (kept for the CLI
+    # comparison) and with the plain versions
+    head = frames[:cfg["cli_frames"]]
+    _, head_pkts, _, _ = api_encode(head, cfg, device, "hand")
+    api_encode(head, cfg, device, "plain")
+    os.environ["SVT_TPU_TIMING"] = "1"  # stage clock: tf, tpl, host tier
+    try:
+        cuda_fullloop.launches = cuda_sad.launches = 0
+        api_k, pk, rec_k, dt_k = api_encode(frames, cfg, device, "hand",
+                                            recon=True)
+        launches = {"fullloop": cuda_fullloop.launches,
+                    "sad": cuda_sad.launches}
+        api_p, pp, _, dt_p = api_encode(frames, cfg, device, "plain")
+    finally:
+        del os.environ["SVT_TPU_TIMING"]
+    for name, n in launches.items():
+        check(n > 0, f"config 2: the main path launched no {name} kernel")
+    check(len(rec_k) == cfg["frames"] and len(pk) == len(pp)
+          and all(len(p.data) > 0 for p in pk),
+          "config 2: expected a non-empty packet per TU, the same count in "
+          "both runs, and a recon per frame")
+    check("tf" in api_k._enc.timing and "tpl" in api_k._enc.timing,
+          "config 2: tf and tpl missing from the stage seconds")
+    qk = [(p.pts, c[0]) for p, c in zip(pk, api_k.coded) if c is not None]
+    qp_ = [(p.pts, c[0]) for p, c in zip(pp, api_p.coded) if c is not None]
+    diff = [i for i, (a, b) in enumerate(zip(pk, pp)) if a.data != b.data]
+    for i in diff:
+        ck, cp = api_k.coded[i], api_p.coded[i]
+        check(ck is not None and cp is not None,
+              f"config 2: show-existing TU {i} differs")
+        if ck[0] != cp[0]:
+            print(f"config 2: TU {i} (pts {pk[i].pts}) qindex {ck[0]} with "
+                  f"the kernels, {cp[0]} plain; TPL r0 with the kernels "
+                  f"{api_k.r0s}, plain {api_p.r0s}", flush=True)
+            check(False, f"config 2: TU {i} qindex differs")
+        agree = decision_agreement(ck[1], cp[1])
+        print(f"config 2: TU {i} (pts {pk[i].pts}, qindex {ck[0]}) differs "
+              f"between kernel and plain runs; decision agreement per "
+              f"depth {agree}", flush=True)
+        check(min(agree.values()) >= 0.98,
+              f"config 2: TU {i} decision agreement below 0.98")
+    gate = dav1d_check("config2", None, [p.data for p in pk], cfg,
+                       recons=rec_k)
+    tpl = tpl_on_card(frames, cfg, device)
+    cli = cli_vs_api(head, cfg, device, head_pkts)
+
+    def timing(api):
+        return {k: round(v, 4) for k, v in api._enc.timing.items()}
+
+    print(f"config 2: {cfg['w']}x{cfg['h']} 8-bit, {cfg['frames']} frames, "
+          f"p{cfg['preset']}, CRF {cfg['crf']}, TF + TPL on, through "
+          f"SvtAv1Encoder ({len(pk)} TUs): kernels "
+          f"{cfg['frames'] / dt_k:.3f} fps ({dt_k:.3f} s; stage seconds "
+          f"{timing(api_k)}), plain {cfg['frames'] / dt_p:.3f} fps "
+          f"({dt_p:.3f} s; {timing(api_p)}); qindex per coded frame "
+          f"(pts, q): kernels {qk}, plain {qp_}; {len(diff)} of {len(pk)} "
+          f"TUs differ; {gate}; launches {launches}; "
+          f"{sum(len(p.data) for p in pk)} bytes", flush=True)
+    print(f"config 2: {tpl}", flush=True)
+    print(f"config 2: {cli}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -534,8 +784,9 @@ def main() -> int:
 
     measured = {"fullloop": phase_kernels(device), "sad": phase_sad(device)}
     phase_slice(device)
-    launches = phase_inter(device)
+    phase_inter(device)
     phase_hd(device)
+    launches = phase_config2(device)
     check("jax" not in sys.modules, "jax was imported")
 
     print(json.dumps({"kernels": [{

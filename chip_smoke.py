@@ -11,17 +11,21 @@ order; any failure raises and the script exits non-zero without a result:
 2. build: the hand-written kernels (fullloop, sad), built with nvcc from
    this checkout, one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card,
-   with times of both.
+   with times of both and the kernel's bound and share of it; for TPL's
+   float32 case also the fullloop wrapper's host time per call and the
+   kernel's device time per launch from torch.profiler.
    fullloop with the tolerances of the JAX package's kernel test
    (tests/test_pallas.py:64-75), with and without the inverse output, at
    an off-tile batch, at the batches the main paths give it (config 1;
    the 1080p encode of phase 6, whose 16 frames fold into one batch; the
    inter candidates of phase 5, one 720p frame per launch; TPL's float32
-   closed-loop residual of one 720p frame, n = 16, B = 3600) and, for
+   closed-loop residual of one 720p frame, n = 16, B = 3840: TPL pads 720
+   rows to 768) and, for
    n = 4, which those paths do not reach, at one 1080p frame's batch.
    sad_lattice bit-exact, with 8-bit and 10-bit samples, at an off-tile
    batch and at one 720p (240 superblocks) and one 1080p (510) frame.
-4. slice: the config-1 clip (tools/mkclip "blobs", 352x288, 32 frames,
+4. slice: the config-1 clip (the "blobs" clip of tools/mkclip.py, made by
+   svt_av1_psyex_tpu_torch/utils/clips.py; 352x288, 32 frames,
    preset 12, qindex 140) through the port's Av1Encoder.encode_keyframes
    on the card, once with the kernels (the main path: the kernels'
    launch counts are set to 0 before this run and read after it) and
@@ -66,13 +70,19 @@ order; any failure raises and the script exits non-zero without a result:
 
 Then a JSON line of the kernels ("launches": the count of phase 7's
 kernel run; fullloop "ms"/"plain_ms": its device time summed
-over its launches in one 1080p 16-frame analysis, "max_abs_err": the
-largest |inverse residual| difference against the plain version over
-every compared block; sad "ms"/"plain_ms": one launch at one 720p
-frame's 240 superblocks, "max_abs_err": the largest difference over
-every compared lattice, 0 when bit-exact), the nvidia-smi line, and last
-{"ok": true, "device": {...}}. The script imports torch and the port,
-and checks that jax never entered sys.modules.
+over its launches in one 1080p 16-frame analysis, "bound_ms" the sum of
+those launches' bounds, "max_abs_err": the largest |inverse residual|
+difference against the plain version over every compared block; sad
+"ms"/"plain_ms"/"bound_ms": one launch at one 720p frame's 240
+superblocks, "max_abs_err": the largest difference over every compared
+lattice, 0 when bit-exact; "library_ms" null: no single PyTorch call
+computes either function), the nvidia-smi line, and last
+{"ok": true, "device": {...}}. A bound is the least time an H100 SXM
+could take for the same work (ops/cuda/roofline.py): the larger of the
+bytes moved over 3.35 TB/s and the operations over the fp32 FMA or int32
+issue rate. The script imports torch and the port, and checks that
+neither jax nor the JAX package (svt_av1_psyex_tpu) entered
+sys.modules.
 """
 
 from __future__ import annotations
@@ -192,17 +202,45 @@ def compare_fullloop(mk, mp, ik, ip, resid) -> dict:
             "max_abs_err_inv": err}
 
 
+def host_and_device_us(fn, name: str, reps: int = 200) -> tuple:
+    """fn's host time per call (the enqueue: `reps` calls back to back, no
+    synchronisation inside) and the device time per launch of the kernels
+    whose name holds `name`, from torch.profiler; None where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if name in e.key]
+    total = sum(getattr(e, "device_time_total", 0.0) for e in evts)
+    count = sum(e.count for e in evts)
+    return host_us, (total / count if count and total else None)
+
+
 def phase_kernels(device) -> dict:
     """Phase 3: fullloop kernel vs its plain version on the card."""
     import torch
 
     from svt_av1_psyex_tpu_torch.device.intra import qp6_for, qp_row_for
     from svt_av1_psyex_tpu_torch.ops.cuda.fullloop import fullloop
+    from svt_av1_psyex_tpu_torch.ops.cuda.roofline import fullloop_bound
     from svt_av1_psyex_tpu_torch.ops.fullloop_ref import fullloop_ref
 
     qp_row = qp_row_for(CONFIG1["qindex"], 0, 0, 8)
     worst = 0.0
-    hd_ms = [0.0, 0.0]
+    hd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+          "ops_ms": 0.0}
     for n in (4, 8, 16, 32):
         ls = 1 if n == 32 else 0
         qp6 = qp6_for(qp_row, ls)
@@ -238,18 +276,37 @@ def phase_kernels(device) -> dict:
                     cuda_ms(lambda: fullloop(resid, qp6, n, ls, want_inv)),
                     cuda_ms(lambda: fullloop_ref(resid, qp6, n, ls,
                                                  want_inv)))
+            bnd = fullloop_bound(b, n)
+            bnd_inv = fullloop_bound(b, n, want_inv=True)
             print(f"kernels: fullloop n={n} {label} B={b}: kernel "
-                  f"{ms[False][0]:.4f} ms vs plain {ms[False][1]:.4f} ms; "
-                  f"with inv {ms[True][0]:.4f} ms vs {ms[True][1]:.4f} ms; "
-                  f"eob agreement {st['eob_eq']:.6f}, {st['flipped']} "
-                  f"blocks at a quantization boundary, max |inv err| "
+                  f"{ms[False][0]:.4f} ms vs plain {ms[False][1]:.4f} ms, "
+                  f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                  f"{bnd['bound_ms'] / ms[False][0]:.1%} of it; with inv "
+                  f"{ms[True][0]:.4f} ms vs {ms[True][1]:.4f} ms, bound "
+                  f"{bnd_inv['bound_ms']:.4f} ms, "
+                  f"{bnd_inv['bound_ms'] / ms[True][0]:.1%}; eob agreement "
+                  f"{st['eob_eq']:.6f}, {st['flipped']} blocks at a "
+                  f"quantization boundary, max |inv err| "
                   f"{st['max_abs_err_inv']:.6g}", flush=True)
+            if label == "720p-TPL-f32":
+                host_us, dev_us = host_and_device_us(
+                    lambda: fullloop(resid, qp6, n, ls, True),
+                    "fullloop_kernel")
+                dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
+                print(f"kernels: fullloop n={n} {label} B={b}: the wrapper's "
+                      f"host time {host_us:.2f} us per call, the kernel's "
+                      f"device time {dev} per launch (torch.profiler)",
+                      flush=True)
             if label == "1080p-16-frames":
-                hd_ms[0] += ms[False][0]
-                hd_ms[1] += ms[False][1]
+                hd["ms"] += ms[False][0]
+                hd["plain_ms"] += ms[False][1]
+                for k in ("bound_ms", "bytes_ms", "ops_ms"):
+                    hd[k] += bnd[k]
             del resid
             torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": hd_ms[0], "plain_ms": hd_ms[1]}
+    return {"max_abs_err": worst, **hd,
+            "bound_by": ("bytes" if hd["bytes_ms"] >= hd["ops_ms"]
+                         else "operations")}
 
 
 def superblocks(cfg: dict) -> int:
@@ -261,6 +318,7 @@ def phase_sad(device) -> dict:
     card, bit-exact, 8-bit and 10-bit samples."""
     import torch
 
+    from svt_av1_psyex_tpu_torch.ops.cuda.roofline import sad_bound
     from svt_av1_psyex_tpu_torch.ops.cuda.sad import sad_lattice
     from svt_av1_psyex_tpu_torch.ops.sad_ref import sad_lattice_ref
 
@@ -286,24 +344,26 @@ def phase_sad(device) -> dict:
             ms[bd] = (cuda_ms(lambda: sad_lattice(tiles, wins)),
                       cuda_ms(lambda: sad_lattice_ref(tiles, wins)))
             del tiles, wins, got, want
+        bnd = sad_bound(nsb)
         print(f"kernels: sad_lattice {label} nSB={nsb}: bit-exact at 8 and "
               f"10 bits; kernel {ms[8][0]:.4f} ms vs plain {ms[8][1]:.4f} "
               f"ms (8-bit), {ms[10][0]:.4f} ms vs {ms[10][1]:.4f} ms "
-              f"(10-bit)", flush=True)
+              f"(10-bit); bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), {bnd['bound_ms'] / ms[8][0]:.1%} of it",
+              flush=True)
         if label == "720p":
-            out = {"ms": ms[8][0], "plain_ms": ms[8][1]}
+            out = {"ms": ms[8][0], "plain_ms": ms[8][1],
+                   "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, **out}
 
 
 def make_frames(cfg: dict) -> list:
-    sys.path.insert(0, str(ROOT / "tools"))
-    from mkclip import synth_frame
-
     from svt_av1_psyex_tpu_torch.streams import VideoFormat
+    from svt_av1_psyex_tpu_torch.utils.clips import synth_frame
 
     fmt = VideoFormat(cfg["w"], cfg["h"], fps=Fraction(30, 1))
-    return [synth_frame(fmt, t, "blobs") for t in range(cfg["frames"])]
+    return [synth_frame(fmt, t) for t in range(cfg["frames"])]
 
 
 def make_encoder(cfg: dict, device, kernels: str):
@@ -416,9 +476,8 @@ def encode_gop(frames: list, gop: int, cfg: dict, device, kernels: str):
     """A keyframe, then one `gop`-frame random-access mini-GOP. Returns
     (encoder, TUs, display-order recons, seconds, coded-frame TU
     indices)."""
-    from svt_av1_psyex_tpu.codec.gop import plan_minigop
-
     from svt_av1_psyex_tpu_torch.codec.encoder import encode_plans
+    from svt_av1_psyex_tpu_torch.codec.gop import plan_minigop
 
     enc = recording_encoder(cfg, device, kernels)
     plans = plan_minigop(0, 1, gop, future_slot=1)
@@ -648,10 +707,9 @@ def cli_vs_api(frames: list, cfg: dict, device, api_pkts: list) -> str:
     (`api_pkts`, the same frames in-process). The CLI's tune and
     variance-octile defaults differ from the API's, so it is given the
     API's."""
-    from svt_av1_psyex_tpu.utils.ivf import read_ivf
-    from svt_av1_psyex_tpu.utils.y4m import Y4MWriter
-
     from svt_av1_psyex_tpu_torch.streams import VideoFormat
+    from svt_av1_psyex_tpu_torch.utils.ivf import read_ivf
+    from svt_av1_psyex_tpu_torch.utils.y4m import Y4MWriter
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     y4m, ivf = OUT_DIR / "config2.y4m", OUT_DIR / "config2_cli.ivf"
@@ -787,13 +845,18 @@ def main() -> int:
     phase_inter(device)
     phase_hd(device)
     launches = phase_config2(device)
-    check("jax" not in sys.modules, "jax was imported")
+    check(not any(m.split(".")[0] in ("jax", "svt_av1_psyex_tpu")
+                  for m in sys.modules), "jax or the JAX package was imported")
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": measured[name]["max_abs_err"],
-        "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"]}
+        "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
+        "bound_ms": measured[name]["bound_ms"],
+        "bound_by": measured[name]["bound_by"],
+        # no single PyTorch call computes either kernel's function
+        "library_ms": None}
         for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,18 +10,23 @@ torch and never jax:
            argument threaded from the encoder down;
 * ops/     the kernels: the plain PyTorch version of each one
            (`*_ref.py`) and its hand-written Hopper kernel (`cuda/`);
-* codec/   the encoder and device mode decision, as subclasses of the
-           JAX package's host-tier classes, and the host side of TPL
-           and temporal filtering;
-* api/     `SvtAv1Encoder`, the JAX package's API class with its device
-           stages on the port;
+* codec/   the encoder, mode decision (host and device-backed), GOP
+           planning, rate control, the TPL synthesizer and q ladder,
+           temporal filtering's host side, loop restoration's search;
+* api/     `SvtAv1Encoder`, the EbSvtAv1Enc-shaped library surface;
 * app/     the SvtAv1EncApp-shaped CLI
            (`python -m svt_av1_psyex_tpu_torch.app.main ... --device`);
-* native/  C backends the port wraps without the JAX device tier.
+* bitstream/, conformance/, utils/  OBUs, the range coder and syntax
+           writers; the dav1d harness; y4m/IVF I/O and logging;
+* native/  ctypes bindings of the C host tier (native/*.c at the
+           repository root) and the dav1d shim, built with gcc at first
+           use into build/torch_native/.
 
-The host tier (bitstream, partition DP, native commit, DLF, CDEF,
-entropy coding, GOP planning, the TPL synthesizer and q ladder) is
-imported from the JAX package wherever it is jax-free at import time.
+The host tier is the port's own copy of the JAX package's jax-free
+modules, under the same relative paths: the port imports nothing of
+svt_av1_psyex_tpu. Every entry point (Av1Encoder, SvtAv1Encoder,
+svt_av1_enc_init_handle, the CLI) runs on "cuda" unless the caller asks
+for "cpu".
 
 Ported so far: the API and CLI over the device mode-decision path at
 presets >= 6 (keyframes and inter frames), with keyframe and ARF
@@ -31,3 +36,6 @@ ported yet.
 """
 
 __version__ = "0.1.0"
+
+# Version string surfaced through the svt_av1_get_version-equivalent API.
+SVT_VERSION = "3.0.2-B-tpu"

@@ -3,11 +3,10 @@
     python -m svt_av1_psyex_tpu_torch.app.main -i in.y4m -b out.ivf \\
         --preset 8 --crf 30 --device cuda
 
-A copy of svt_av1_psyex_tpu/app/main.py (its `build_parser`,
-`_run_channels` and `_run_channel`) that encodes through the port's
-SvtAv1Encoder, with one more option: `--device` names the analysis
-device ("cuda" by default; "cpu" runs the plain version of every
-kernel). Asking for CUDA where there is none raises. Token names follow
+The JAX package's CLI (svt_av1_psyex_tpu/app/main.py), encoding
+through the port's SvtAv1Encoder, with one more option: `--device` names
+the analysis device ("cuda" by default; "cpu" runs the plain version of
+every kernel). Asking for CUDA where there is none raises. Token names follow
 the reference's CLI table (Source/App/app_config.c:1296) for the
 implemented set; --svtav1-params k=v:k=v passthrough supported.
 """
@@ -20,13 +19,12 @@ import time
 
 import numpy as np
 
-from svt_av1_psyex_tpu.api.params import parse_svtav1_params
-from svt_av1_psyex_tpu.conformance.dav1d import psnr, ssim
-from svt_av1_psyex_tpu.utils.ivf import IvfWriter
-from svt_av1_psyex_tpu.utils.y4m import Y4MReader
-
 from ..api.encoder import EncoderConfig, SvtAv1Encoder, svt_av1_get_version
+from ..api.params import parse_svtav1_params
+from ..conformance.dav1d import psnr, ssim
 from ..runtime import resolve_device
+from ..utils.ivf import IvfWriter
+from ..utils.y4m import Y4MReader
 
 
 def build_parser() -> argparse.ArgumentParser:

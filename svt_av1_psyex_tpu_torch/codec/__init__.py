@@ -1,1 +1,2 @@
-"""Encoder orchestration of the port, on top of the JAX package's host tier."""
+"""Encoder algorithms: block geometry, mode decision, reconstruction, GOP
+planning, rate control, TPL and temporal filtering (host side)."""

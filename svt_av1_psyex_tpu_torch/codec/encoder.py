@@ -1,95 +1,366 @@
-"""The port's encoder: the JAX package's Av1Encoder with its device tier
-replaced by the port's.
+"""Frame encoder orchestration: mode decision -> recon -> OBUs.
 
-`Av1Encoder` subclasses svt_av1_psyex_tpu/codec/encoder.py's class and
-overrides only what reaches JAX:
+Two-pass structure per frame:
+  1. Analysis/recon pass — walks superblocks in coding order, picks intra
+     modes against reconstructed neighbors, runs the device compute chain
+     (predict -> residual -> fwd txfm -> quantize -> dequant -> inv txfm
+     -> recon). This pass is the seam that moves onto TPU (batched per
+     candidate/block); contexts/entropy are untouched here.
+  2. Bitstream pass — tile writer emits syntax with CDF adaptation.
 
-* the constructor takes the analysis `device` (and `kernels`) and does
-  not arm the JAX persistent compile cache;
-* `_begin_frame_impl` is a copy of the base method, whose two calls into
-  the device tier go to the port (see its docstring);
-* `encode_keyframes` runs one batched analysis on the device for the
-  whole group, then the host tail per frame;
-* `_pick_cdef` picks the native C backend through the port's cdefc, or
-  the numpy one; there is no device CDEF.
+Counterpart: the reference's MD + encode-pass pipeline (enc_dec_process.c,
+coding_loop.c) collapsed into its minimal intra form.
 
-`begin_frame`, `resume_frame` and `encode_frame` are inherited: key and
-inter frames (FramePlan from codec.gop.plan_minigop) run through the
-port's device mode decision at presets >= 6, and through the host mode
-decision on the port's motion field below. Loop restoration, whose
-search runs on the JAX device tier, raises NotImplementedError.
+The device analysis (the keyframe and inter lattices, the motion field
+of the host mode decision) runs in PyTorch on the encoder's `device`
+("cuda" by default, or "cpu"), through the hand-written kernels or, with
+kernels="plain", their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 
-from svt_av1_psyex_tpu.bitstream.coeff_writer import CoeffWriter
-from svt_av1_psyex_tpu.bitstream.headers import (
+from ..bitstream.bitw import BitWriter
+from ..bitstream.coeff_writer import CoeffWriter
+from ..bitstream.headers import (
     FrameConfig,
     SequenceConfig,
     compute_tile_info,
+    write_frame_header,
+    write_sequence_header,
 )
-from svt_av1_psyex_tpu.bitstream.tables import FrameCdfs
-from svt_av1_psyex_tpu.bitstream.tile_writer import TileWriter
-from svt_av1_psyex_tpu.codec import encoder as ref_encoder
-from svt_av1_psyex_tpu.codec.constants import BlockSize
-from svt_av1_psyex_tpu.codec.encoder import _PlaneCtx
-from svt_av1_psyex_tpu.codec.rd import cdf_costs, compute_rdmult
-from svt_av1_psyex_tpu.utils import tunnel
-
+from ..bitstream.obu import ObuType, temporal_delimiter, wrap_obu
+from ..bitstream.tables import FrameCdfs, scan_table
+from ..bitstream.tile_writer import LeafBlock, PartitionNode, TileWriter
 from ..device.intra import DEVICE_MODES, intra_analysis_batch, qp_row_for
 from ..native import cdefc
+from ..ops import intra as intra_ops
+from ..ops.quant import build_plane_quant, quantize_b
+from ..ops.txfm import forward_txfm2d, inverse_txfm2d
+from .constants import (
+    BLOCK_H,
+    BLOCK_W,
+    MAX_TX_SIZE_RECT,
+    TX_H,
+    TX_W,
+    BlockSize,
+    IntraMode,
+    Partition,
+    TxType,
+    block_size_of,
+    subsize,
+    tx_size_sqr_up,
+)
 from ..runtime import check_kernels, resolve_device
 from .md_device import DeviceIntraMD, upload_lumas
+from .rd import cdf_costs, compute_rdmult
 
-__all__ = ["Av1Encoder", "SequenceConfig"]
+# tx scale (spec av1_get_tx_scale): 0 for <=16, 1 for 32-class, 2 for 64-class
+def tx_log_scale(tx_size: int) -> int:
+    """Dequant shift (av1_get_tx_scale): AREA-based, not square-up-based —
+    they differ for 32x8/8x32 (0 not 1) and 64x16/16x64 (1 not 2)."""
+    pels = int(TX_W[tx_size]) * int(TX_H[tx_size])
+    return int(pels > 256) + int(pels > 1024)
 
 
-class Av1Encoder(ref_encoder.Av1Encoder):
-    """Encoder whose device analysis runs in PyTorch on `device` ("cpu"
-    or "cuda"). `kernels="plain"` runs the plain PyTorch version of every
-    kernel instead of the hand kernel, to compare the two on the card;
-    the default "hand" launches the CUDA kernels on a CUDA device (on the
-    CPU there are none, and the plain versions run)."""
+# spec intra_mode_to_tx_type (chroma tx type derivation)
+_MODE_TO_TXTYPE = {
+    IntraMode.DC: TxType.DCT_DCT, IntraMode.V: TxType.ADST_DCT,
+    IntraMode.H: TxType.DCT_ADST, IntraMode.D45: TxType.DCT_DCT,
+    IntraMode.D135: TxType.ADST_ADST, IntraMode.D113: TxType.ADST_DCT,
+    IntraMode.D157: TxType.DCT_ADST, IntraMode.D203: TxType.DCT_ADST,
+    IntraMode.D67: TxType.ADST_DCT, IntraMode.SMOOTH: TxType.ADST_ADST,
+    IntraMode.SMOOTH_V: TxType.ADST_DCT, IntraMode.SMOOTH_H: TxType.DCT_ADST,
+    IntraMode.PAETH: TxType.ADST_ADST,
+}
 
-    def __init__(self, seq, preset: int = 10, *, device,
-                 kernels: str = "hand", **kwargs):
+
+def chroma_tx_type(uv_mode: int, tx_size: int) -> int:
+    """Decoder-derived chroma tx type (compute_tx_type for intra chroma)."""
+    if tx_size_sqr_up(tx_size) > 2:  # > TX_16X16: DCT only set
+        return TxType.DCT_DCT
+    t = _MODE_TO_TXTYPE[IntraMode(uv_mode)]
+    return t  # members of DTT4 sets are always allowed for <=16
+
+
+@dataclass
+class _PlaneCtx:
+    src: np.ndarray  # aligned source
+    recon: np.ndarray
+    ss_x: int
+    ss_y: int
+
+
+class Av1Encoder:
+    """The frame encoder. Its device analysis runs in PyTorch on `device`
+    ("cuda", the default, "cuda:N" or "cpu"; asking for CUDA where there
+    is none raises). `kernels="plain"` runs the plain PyTorch version of
+    every kernel instead of the hand kernel, to compare the two on the
+    card; the default "hand" launches the CUDA kernels on a CUDA device
+    (on the CPU there are none, and the plain versions run)."""
+
+    CANDIDATE_MODES = [IntraMode.DC, IntraMode.V, IntraMode.H,
+                       IntraMode.SMOOTH, IntraMode.PAETH]
+
+    def __init__(self, seq: SequenceConfig, preset: int = 10,
+                 enable_variance_boost: bool = False,
+                 variance_boost_strength: int = 2, variance_octile: int = 6,
+                 variance_boost_curve: int = 0, enable_dlf: bool = True,
+                 psy_rd: float = 0.0, tune: int = 1,
+                 enable_restoration: bool | None = None,
+                 tile_cols_log2: int = 0, film_grain: int = 0,
+                 qm: tuple | None = None, noise_norm_strength: int = 0,
+                 max_32_tx_size: bool = False, seg_aq: bool = False,
+                 low_q_taper: bool = False, adaptive_film_grain: bool = True,
+                 rdoq: int | None = None, sharpness: int = 0,
+                 sharp_tx: bool = True, spy_rd: int = 0,
+                 enable_global_motion: bool = True,
+                 delta_q_offsets: tuple = (0, 0, 0),
+                 enable_mfmv: bool = True,
+                 screen_content_mode: int = 0, complex_hvs: int = 0,
+                 hbd_mds: int = 0, superres_denom: int = 8, *,
+                 device="cuda", kernels: str = "hand"):
         self.device = resolve_device(device)
         self.kernels = check_kernels(kernels)
-        # the inherited constructor arms the JAX package's persistent
-        # compile cache, which imports jax; the port compiles nothing
-        # through XLA, so the one-shot hook is marked as done
-        tunnel._cache_armed = True
-        super().__init__(seq, preset, **kwargs)
+        self.stage_seconds: dict = {}
+        self.seq = seq
+        self.preset = preset
+        # screen-content tools: 0 off / 1 force / 2 auto-detect per KF
+        # (svt_aom_is_screen_content_psy); SELECT-mode seq header bit
+        self.screen_content_mode = int(screen_content_mode)
+        # --complex-hvs: SA8D stage-0 ranking (enc_mode_config.c:8517);
+        # --hbd-mds 3: 8-bit analysis tier for 10-bit content (hbd_md=0)
+        self.complex_hvs = int(complex_hvs)
+        self.hbd_mds = int(hbd_mds)
+        self._allow_sc = screen_content_mode == 1
+        if screen_content_mode:
+            seq.force_screen_content_tools = 2
+        # 4:4:4 (profile 1): the CDEF search/filter backends are still
+        # 4:2:0-shaped — CDEF is signaled off for non-subsampled chroma
+        # (DLF/restoration/grain are subsampling-generic)
+        if not (seq.subsampling_x and seq.subsampling_y) and not seq.mono_chrome:
+            seq.enable_cdef = False
+        # loop restoration defaults on at the slower presets (the
+        # reference enables it for enc_mode <= M6-class configs)
+        if enable_restoration is None:
+            enable_restoration = preset <= 6
+        seq.enable_restoration = bool(enable_restoration)
+        # recursive filter intra searched (and therefore signaled) at the
+        # slower presets (sig_deriv md_filter_intra_level gating)
+        seq.enable_filter_intra = preset <= 6
+        # local warped motion (WARPED_CAUSAL): the reference keeps
+        # wm_level nonzero up to M9 — base-layer frames only at M4-9
+        # (enc_mode_config.c:8237-8243); per-frame gating in begin_frame
+        seq.enable_warped_motion = preset <= 9
+        # tile columns (log2): each tile is an independent MD + entropy
+        # partition (ec_process.c per-tile loop); 0 = single tile
+        self.tile_cols_log2 = tile_cols_log2
+        # MFMV temporal MV prediction (spec 7.9; EbSvtAv1Enc.h
+        # enable_mfmv, reference default auto/on): sequence-level gate;
+        # per-frame use_ref_frame_mvs derived in begin_frame
+        seq.enable_ref_frame_mvs = bool(enable_mfmv)
+        # film grain synthesis strength (--film-grain 0..50): display-side
+        # grain parameters signaled per frame; refs stay pre-grain
+        self.film_grain = int(film_grain)
+        self.adaptive_film_grain = bool(adaptive_film_grain)
+        seq.film_grain_params_present = self.film_grain > 0
+        # quantizer matrices: (min_qm, max_qm, min_chroma_qm,
+        # max_chroma_qm) level ranges interpolated by frame q
+        # (aom_get_qmlevel; svt_av1_qm_init md_config_process.c:258)
+        self.qm = qm
+        # PSYEX noise normalization (AC coefficient revival/boost)
+        self.noise_norm_strength = int(noise_norm_strength)
+        # forbid 64-class transforms (tx split forced under tx select)
+        self.max_32_tx_size = bool(max_32_tx_size)
+        # segmentation-based adaptive quantization (aq-mode 1 analog):
+        # variance-quartile segments with ALT_Q deltas instead of delta-q
+        self.seg_aq = bool(seg_aq)
+        # dampen variance-boost q drops at very low q (CRF only)
+        self.low_q_taper = bool(low_q_taper)
+        # psy-rd acts whenever set and tune is not PSNR (enc_settings.c:1270)
+        self.psy_rd = psy_rd if tune != 1 else 0.0
+        # global motion (EbSvtAv1Enc.h enable_global_motion; reference
+        # default 1): estimated on host-MD inter frames (codec/gm.py)
+        self.enable_global_motion = bool(enable_global_motion)
+        # direct quantizer deltas (luma-y-dc / chroma-u-dc / chroma-u-ac
+        # qindex offsets -> frame header delta_q_* fields)
+        self.delta_q_offsets = tuple(delta_q_offsets)
+        # RDOQ trellis: reference rdoq_level = 1 at every non-rtc preset
+        # (enc_mode_config.c:7481); SVT_TPU_NO_RDOQ=1 or rdoq=0 disables
+        self.rdoq_level = (1 if rdoq is None else int(rdoq))
+        if os.environ.get("SVT_TPU_NO_RDOQ") == "1":
+            self.rdoq_level = 0
+        # PSYEX sharp-tx (default 1, enc_settings.c:1111) + --sharpness;
+        # the rdoq sharpness gate needs tune 0/3 (derive_vq_params)
+        self.sharpness = int(sharpness)
+        self.sharp_tx = bool(sharp_tx)
+        self.rdoq_use_sharpness = tune in (0, 3)
+        self.tune = tune
+        # PSYEX spy-rd (0 off / 1 full / 2 partial): alternate psy RD
+        # pathways — mode-class distortion biases (Parameters.md:104)
+        self.spy_rd = int(spy_rd)
+        self.enable_dlf = enable_dlf
+        self.enable_variance_boost = enable_variance_boost
+        self.vb_strength = variance_boost_strength
+        self.vb_octile = variance_octile
+        self.vb_curve = variance_boost_curve
+        # super-resolution (spec 7.16; super_res.c fixed mode): code the
+        # frame at a horizontally downscaled width, the decoder upscales
+        # the recon normatively.  seq.width becomes the CODED width for
+        # the whole pipeline; only the headers signal UpscaledWidth.
+        # v1 scope: all-intra streams (scaled inter prediction /
+        # reference scaling pending); loop restoration stays off (LR
+        # runs post-upscale per spec — not plumbed yet).
+        self.superres_denom = int(superres_denom)
+        if self.superres_denom > 8:
+            from ..ops.resize import scaled_size
+
+            seq.superres_upscaled_width = seq.width
+            seq.superres_denom = self.superres_denom
+            seq.width = scaled_size(seq.width, self.superres_denom)
+            seq.enable_superres = True
+            seq.enable_restoration = False
+        self.mi_cols = 2 * ((seq.width + 7) >> 3)
+        self.mi_rows = 2 * ((seq.height + 7) >> 3)
+        self.aligned_w = self.mi_cols * 4
+        self.aligned_h = self.mi_rows * 4
+        self.frame_count = 0
         if seq.enable_restoration:
             raise NotImplementedError(
-                "loop restoration is not ported yet (its search runs on "
-                "the JAX device tier): pass enable_restoration=False or a "
-                "preset above 6")
-        self.stage_seconds: dict = {}
+                "loop restoration is not ported yet (its search has no "
+                "device tier in this package): pass enable_restoration="
+                "False or a preset above 6")
+
+    @property
+    def _cdef_search_level(self) -> int:
+        """Preset -> CDEF candidate set (enc_mode_config.c:1736-1750)."""
+        if self.preset <= 1:
+            return 1
+        if self.preset <= 2:
+            return 2
+        if self.preset <= 8:
+            return 5
+        return 7
+
+    def _device_md_precheck(self) -> bool:
+        """Frame-independent device-MD eligibility — the same gates as
+        begin_frame's per-frame dev_ok minus the frame-dependent SC bit
+        (one predicate; VERDICT r4 weak #5). QM / noise-norm frames fall
+        back to the host txb chain inside the device commit and seg-AQ
+        rides the per-SB qmap plumbing, so none of them gate group
+        batching either. Presets 6+ ride the device lattice (config 3's
+        psy tools — psy-rd, variance boost, CDEF, restoration — all run
+        with it); presets <= 5 still need host-only tools (ext/4-way
+        partitions, filter-intra/CfL search)."""
+        import os
+
+        seq = self.seq
+        return (self.preset >= 6 and not seq.use_128x128_superblock
+                and self.tile_cols_log2 == 0
+                and self.screen_content_mode != 1  # forced-SC: host tools
+                and (seq.mono_chrome
+                     or (seq.subsampling_x and seq.subsampling_y))
+                and os.environ.get("SVT_TPU_HOST_MD") != "1")
+
+    @property
+    def _min_partition_bsize(self) -> int:
+        """Preset -> smallest searched square bsize (depth ladder)."""
+        if self.preset >= 12:
+            return BlockSize.B64X64
+        if self.preset >= 10:
+            return BlockSize.B32X32
+        if self.preset >= 7:
+            return BlockSize.B16X16
+        return BlockSize.B8X8
+
+    # ---- source preparation ---------------------------------------------------
+    def _pad_plane(self, plane: np.ndarray, aw: int, ah: int) -> np.ndarray:
+        h, w = plane.shape
+        out = np.empty((ah, aw), plane.dtype)
+        out[:h, :w] = plane
+        if w < aw:
+            out[:h, w:] = plane[:, -1:]
+        if h < ah:
+            out[h:, :] = out[h - 1 : h, :]
+        return out
+
+    # ---- frame encode --------------------------------------------------------------
+    def encode_keyframe(self, planes: list[np.ndarray] | None,
+                        base_q_idx: int = 80) -> bytes:
+        return self.encode_frame(planes, base_q_idx, force_key=True)
+
+    def state_snapshot(self):
+        """Reference state for the recode loop: slot entries are replaced
+        (never mutated) on refresh, so a shallow slot-list copy + the
+        frame counter fully captures the DPB/CDF-forwarding state."""
+        return (list(getattr(self, "slots", [None] * 8)), self.frame_count)
+
+    def state_restore(self, snap) -> None:
+        slots, count = snap
+        self.slots = list(slots)
+        self.frame_count = count
+
+    def encode_frame(self, planes: list[np.ndarray] | None, base_q_idx: int = 80,
+                     force_key: bool = False, plan=None,
+                     _analysis_row=None, _group=None) -> bytes:
+        """Encode one frame (begin + resume in one step). See
+        begin_frame for the pipeline-parallel two-step form."""
+        st = self.begin_frame(planes, base_q_idx, force_key=force_key,
+                              plan=plan, _analysis_row=_analysis_row,
+                              _group=_group)
+        if isinstance(st, (bytes, bytearray)):
+            return st
+        return self.resume_frame(st)
+
+    def begin_frame(self, planes: list[np.ndarray] | None, base_q_idx: int = 80,
+                    force_key: bool = False, plan=None,
+                    _analysis_row=None, _group=None):
+        """First half of a frame encode: header/config derivation, MD
+        construction and the *dispatch* of the device analysis (async —
+        nothing blocks on the device). Returns a state dict for
+        resume_frame, or TU bytes for show_existing plans.
+
+        The split is the TPU-native pipeline-parallelism seam (SURVEY
+        §2.1 process pipeline): the caller begins several independent
+        frames (same GOP layer — no mutual references), letting the
+        device work through their lattices while the host runs the
+        commit/filter/entropy tail of earlier frames.
+
+        `plan` (codec.gop.FramePlan) selects refs/refresh/show semantics;
+        None = legacy low-delay IPPP (LAST in every slot, refresh all).
+
+        Group-pipeline hooks (encode_keyframes): `_analysis_row` is a
+        precomputed device MD lattice row; `_group` is a list collector —
+        when set, CDEF search and the bitstream pass are deferred (the
+        state dict is appended and returned instead of TU bytes)."""
+        import os as _os
+        import time as _time
+
+        _timing = _os.environ.get("SVT_TPU_TIMING") == "1"
+        _t0 = _time.perf_counter() if _timing else 0.0
+        try:
+            return self._begin_frame_impl(planes, base_q_idx, force_key,
+                                          plan, _analysis_row, _group)
+        finally:
+            if _timing:
+                self._tick("begin", _t0)
 
     def _begin_frame_impl(self, planes, base_q_idx=80, force_key=False,
                           plan=None, _analysis_row=None, _group=None):
-        """A copy of the base class's method
-        (svt_av1_psyex_tpu/codec/encoder.py:438-879), which has no seam
-        for the device tier. Two calls differ, both into device/:
-
-        * the host-MD motion field (base :776-782) is the port's
-          device.me.run_device_me, on self.device through self.kernels;
-        * the device MD (base :860-874) is the port's DeviceInterMD or
-          DeviceIntraMD, on self.device through self.kernels; the
-          multi-device `mesh` the base attaches is not ported.
-
-        Its imports of the host tier name the JAX package's modules."""
+        """begin_frame's work: header and config derivation, MD
+        construction, and the dispatch of the device analysis (the port's
+        DeviceInterMD / DeviceIntraMD lattice, or the motion field of the
+        host mode decision) on self.device through self.kernels."""
         seq = self.seq
         if not hasattr(self, "slots"):
             self.slots = [None] * 8
         if plan is None:
-            from svt_av1_psyex_tpu.codec.gop import FramePlan, LAST, ALTREF
+            from .gop import FramePlan, LAST, ALTREF
 
             is_key = force_key or self.slots[0] is None
             if is_key:
@@ -114,7 +385,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
             assert fr.frame_is_intra, \
                 "superres: all-intra streams only (ref scaling pending)"
             if planes is not None and planes[0].shape[1] > seq.width:
-                from svt_av1_psyex_tpu.ops.resize import downscale_horiz
+                from ..ops.resize import downscale_horiz
 
                 ssx = seq.subsampling_x
                 cws = [seq.width] + [(seq.width + ssx) >> ssx] * 2
@@ -124,7 +395,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
         if self.screen_content_mode:
             if (is_key and self.screen_content_mode == 2
                     and planes is not None):
-                from svt_av1_psyex_tpu.ops.palette import is_screen_content
+                from ..ops.palette import is_screen_content
 
                 self._allow_sc = is_screen_content(np.asarray(planes[0]))
             fr.allow_screen_content_tools = self._allow_sc
@@ -164,7 +435,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
         if self.seg_aq and planes is not None and base_q_idx > 0:
             # segmentation AQ: per-SB variance quartiles -> 4 segments
             # with fixed ALT_Q deltas (segmentation.c aq-mode analog)
-            from svt_av1_psyex_tpu.codec.psy import sb_variances_8x8
+            from .psy import sb_variances_8x8
 
             luma = self._pad_plane(np.asarray(planes[0]), self.aligned_w,
                                    self.aligned_h).astype(np.int64)
@@ -179,7 +450,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
             seg_sb_map = np.digitize(var, qs).astype(np.int8)  # 0..3
             fr.seg_qdeltas = (-10, -5, 0, 5)
         elif self.enable_variance_boost and planes is not None and base_q_idx > 0:
-            from svt_av1_psyex_tpu.codec.psy import variance_adjust_qp
+            from .psy import variance_adjust_qp
 
             luma = self._pad_plane(np.asarray(planes[0]), self.aligned_w,
                                    self.aligned_h).astype(np.int64)
@@ -189,7 +460,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
             betas = getattr(plan, "tpl_betas", None) if plan is not None \
                 else None
             if betas is not None:
-                from svt_av1_psyex_tpu.codec.tpl import get_deltaq_offset
+                from .tpl import get_deltaq_offset
 
                 qpm = np.array(
                     [[get_deltaq_offset(base_q_idx, float(b), is_key,
@@ -200,7 +471,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
                 self.vb_curve, seq.bit_depth, qpm_offsets=qpm)
             fr.base_q_idx = new_base
             if self.low_q_taper and sb_qmap is not None:
-                from svt_av1_psyex_tpu.codec.psy import low_q_taper as _taper
+                from .psy import low_q_taper as _taper
 
                 sb_qmap = _taper(sb_qmap, base_q_idx)
             if np.any(sb_qmap != new_base):
@@ -217,14 +488,14 @@ class Av1Encoder(ref_encoder.Av1Encoder):
             else:
                 noise = None
                 if self.adaptive_film_grain and planes is not None:
-                    from svt_av1_psyex_tpu.codec.tf import estimate_noise_mad
+                    from .tf import estimate_noise_mad
 
                     noise = estimate_noise_mad(
                         np.asarray(planes[0]).astype(np.int64)
                         >> (seq.bit_depth - 8))
                 fr.film_grain = self._film_grain_params(plan.disp_idx, noise)
         if self.qm is not None:
-            from svt_av1_psyex_tpu.ops.quant import get_qmlevel
+            from ..ops.quant import get_qmlevel
 
             mn, mx, cmn, cmx = self.qm
             fr.using_qmatrix = True
@@ -273,11 +544,11 @@ class Av1Encoder(ref_encoder.Av1Encoder):
         if fr.frame_is_intra and fr.allow_intrabc:
             # intra-BC DV prediction replays through the writer-side
             # MiState (ref 0 = INTRA_FRAME entries)
-            from svt_av1_psyex_tpu.codec.mvp import MiState
+            from .mvp import MiState
 
             tw.mi_state = MiState(self.mi_rows, self.mi_cols)
         if not is_key:
-            from svt_av1_psyex_tpu.codec.mvp import MiState
+            from .mvp import MiState
 
             tw.mi_state = MiState(self.mi_rows, self.mi_cols)
             # RefFrameSignBias: ref displays after the current frame
@@ -304,14 +575,14 @@ class Av1Encoder(ref_encoder.Av1Encoder):
             # tile columns — a legal encoder choice)
             import os as _os_mfmv
 
-            from svt_av1_psyex_tpu.codec.mfmv import projection_safe
+            from .mfmv import projection_safe
 
             if (seq.enable_ref_frame_mvs and n_tiles == 1
                     and _os_mfmv.environ.get("SVT_TPU_NO_MFMV") != "1"
                     and projection_safe(fr, self.slots,
                                         seq.order_hint_bits)):
-                from svt_av1_psyex_tpu.codec.mfmv import rel_dist as _rel_dist
-                from svt_av1_psyex_tpu.codec.mfmv import setup_motion_field
+                from .mfmv import rel_dist as _rel_dist
+                from .mfmv import setup_motion_field
 
                 fr.use_ref_frame_mvs = True
                 tw.mi_state.tpl = setup_motion_field(
@@ -357,8 +628,8 @@ class Av1Encoder(ref_encoder.Av1Encoder):
                                   ss_x=ss_x, ss_y=ss_y))
 
         # pass 1: mode decision + recon (MD-local contexts); pass 2: syntax
-        from svt_av1_psyex_tpu.codec.md import ModeDecision
-        from svt_av1_psyex_tpu.codec.rd import compute_rdmult
+        from .md import ModeDecision
+        from .rd import compute_rdmult
 
         # spec 7.11.3.3: MC sample clamping is to the reference's DISPLAY
         # dims (RefUpscaledWidth), not the coded/aligned area — crop the DPB
@@ -436,8 +707,8 @@ class Av1Encoder(ref_encoder.Av1Encoder):
         # TRANSLATION (gm MV coding) + ROTZOOM/AFFINE (warp prediction).
         if (self.enable_global_motion and me_field is not None
                 and not fr.frame_is_intra and not use_device_inter):
-            from svt_av1_psyex_tpu.bitstream.headers import GM_AFFINE
-            from svt_av1_psyex_tpu.codec.gm import estimate_global_motion
+            from ..bitstream.headers import GM_AFFINE
+            from .gm import estimate_global_motion
 
             gm_list = [None] * 7
             src_crop = pctx[0].src[:seq.height, :seq.width]
@@ -457,13 +728,13 @@ class Av1Encoder(ref_encoder.Av1Encoder):
 
         psy_factor = 0.0
         if self.psy_rd > 0.0:
-            from svt_av1_psyex_tpu.ops.psy_dist import hvs_modulation_factor
+            from ..ops.psy_dist import hvs_modulation_factor
 
             psy_factor = hvs_modulation_factor(self.psy_rd, is_key,
                                                plan.layer)
         rdoq_frame = None
         if self.rdoq_level:
-            from svt_av1_psyex_tpu.codec.rdoq import RdoqFrame
+            from .rdoq import RdoqFrame
 
             # the trellis dist is coefficient-domain (8x-orthonormal, so
             # 64x pixel SSE >> 2*shift) — it pairs with the UNDIVIDED
@@ -527,15 +798,519 @@ class Av1Encoder(ref_encoder.Av1Encoder):
                 "make_md": make_md, "is_key": is_key,
                 "analysis_row": _analysis_row, "group": _group}
 
+    def _tick(self, key: str, t0: float) -> float:
+        """SVT_TPU_TIMING=1 stage profiler: accumulate seconds per stage
+        into self.timing (the JAX-profiler-lite of SURVEY §5 tracing)."""
+        import time
+
+        t1 = time.perf_counter()
+        tm = getattr(self, "timing", None)
+        if tm is None:
+            tm = self.timing = {}
+        tm[key] = tm.get(key, 0.0) + (t1 - t0)
+        return t1
+
+    def resume_frame(self, st: dict):
+        """Second half of a frame encode: fetch the device lattice,
+        argmin + conformant commit, in-loop filters, then the bitstream
+        pass (or group deferral). Must run in coding order."""
+        import os
+        import time
+
+        from .rd import compute_rdmult
+
+        timing = os.environ.get("SVT_TPU_TIMING") == "1"
+        t0 = time.perf_counter() if timing else 0.0
+
+        seq = self.seq
+        fr, tw, cdfs = st["fr"], st["tw"], st["cdfs"]
+        pctx, md, dmd = st["pctx"], st["md"], st["dmd"]
+        sb_qmap, ref_planes = st["sb_qmap"], st["ref_planes"]
+        n_tiles, sb_mi, sb_bsize = st["n_tiles"], st["sb_mi"], st["sb_bsize"]
+        is_key = st["is_key"]
+        _group = st["group"]
+
+        sb_plans = []
+        if dmd is not None:
+            dmd.analyze(st["analysis_row"])
+            if timing:
+                t0 = self._tick("device_wait", t0)
+            # whole-frame native commit (native/frame_enc.c): flatten the
+            # argmin plans and run the entire conformant tail in one C
+            # call; SVT_TPU_PY_COMMIT=1 keeps the per-leaf oracle path
+            from ..native import frame_enc as native_frame
+
+            # the C committer quantizes plain (no QM / noise-norm); those
+            # frames take the per-leaf host chain (md._txb_rd has both).
+            # Motion-mode frames (base-layer OBMC/warp trials,
+            # md_device._commit_inter_leaf) also run per-leaf until the
+            # warp/OBMC predictors land in native/frame_enc.c.
+            use_frame_c = (native_frame.available()
+                           and not fr.using_qmatrix
+                           and self.noise_norm_strength == 0
+                           and not self.max_32_tx_size  # C trial lacks
+                           # the 64-class tx cap; per-leaf path has it
+                           and not getattr(fr, "is_motion_mode_switchable",
+                                           False)
+                           and os.environ.get("SVT_TPU_PY_COMMIT") != "1")
+            plans = []
+            # whole-frame partition DP (md_device.plan_frame): one
+            # vectorized pass replaces the per-SB recursive pick
+            from .md_device import _hbd8
+
+            nsby, nsbx = dmd._hp // 64, dmd._wp // 64
+            rdg = np.full((nsby, nsbx), dmd.pick_rdmult(), np.int64)
+            if sb_qmap is not None:
+                for q in np.unique(sb_qmap):
+                    v = compute_rdmult(int(q), seq.bit_depth)
+                    if _hbd8(dmd):
+                        v = max(1, v // 16)
+                    rdg[sb_qmap == q] = v
+            dmd.plan_frame(rdg)
+            for r in range(0, self.mi_rows, sb_mi):
+                for c in range(0, self.mi_cols, sb_mi):
+                    if sb_qmap is not None:
+                        md.cur_qindex = int(sb_qmap[r // sb_mi, c // sb_mi])
+                        md.rdmult = compute_rdmult(md.cur_qindex, seq.bit_depth)
+                    plan = dmd.extract_plan(r, c, sb_bsize)
+                    if use_frame_c:
+                        plans.append((plan, r, c, md.cur_qindex))
+                    else:
+                        node = dmd._commit_plan(plan, r, c)
+                        sb_plans.append((node, r, c))
+            if timing:
+                t0 = self._tick("pick", t0)
+            if use_frame_c:
+                fc = native_frame.FrameCommitter(md, seq, fr, ref_planes)
+                sb_plans = fc.commit(plans)
+            if timing:
+                t0 = self._tick("commit", t0)
+        elif n_tiles == 1:
+            for r in range(0, self.mi_rows, sb_mi):
+                for c in range(0, self.mi_cols, sb_mi):
+                    if sb_qmap is not None:
+                        md.cur_qindex = int(sb_qmap[r // sb_mi, c // sb_mi])
+                        md.rdmult = compute_rdmult(md.cur_qindex, seq.bit_depth)
+                    _, node = md.pick_partition(r, c, sb_bsize)
+                    sb_plans.append((node, r, c))
+        else:
+            # tile columns: per-tile MD over column-sliced plane views —
+            # tile edges become frame edges for every availability rule
+            # (intra neighbors, MVP scans, contexts), matching read_lr/
+            # decode_tile semantics; sb_plans keep frame-absolute coords
+            tc_mi = [min(sb * sb_mi, self.mi_cols)
+                     for sb in fr.tile.col_starts_sb]
+            for t in range(n_tiles):
+                c0, c1 = tc_mi[t], tc_mi[t + 1]
+                x0 = c0 * 4
+                tview = [
+                    _PlaneCtx(src=p.src[:, (c0 * 4) >> p.ss_x : (c1 * 4) >> p.ss_x],
+                              recon=p.recon[:, (c0 * 4) >> p.ss_x : (c1 * 4) >> p.ss_x],
+                              ss_x=p.ss_x, ss_y=p.ss_y)
+                    for p in pctx]
+                md_t = st["make_md"](tview, c1 - c0, None, x_off=x0)
+                for r in range(0, self.mi_rows, sb_mi):
+                    for c in range(c0, c1, sb_mi):
+                        if sb_qmap is not None:
+                            md_t.cur_qindex = int(sb_qmap[r // sb_mi, c // sb_mi])
+                            md_t.rdmult = compute_rdmult(md_t.cur_qindex,
+                                                         seq.bit_depth)
+                        _, node = md_t.pick_partition(r, c - c0, sb_bsize)
+                        sb_plans.append((node, r, c))
+
+        # in-loop filters on the final recon: DLF (spec 7.14) then CDEF
+        # (spec 7.15) then loop restoration (spec 7.17); intra prediction
+        # above already used the unfiltered recon, references/output use
+        # the filtered one.
+        deblock_planes = None
+        if fr.allow_intrabc:
+            # spec 5.9.11/5.9.19/5.9.20: intrabc frames run no in-loop
+            # filters (the causal recon IS the reference the DVs read)
+            fr.lf_level = (0, 0, 0, 0)
+            fr.cdef_bits = 0
+            fr.cdef_y_strengths = (0,)
+            fr.cdef_uv_strengths = (0,)
+            fr.lr_frame_types = None
+        elif self.enable_dlf or seq.enable_cdef or seq.enable_restoration:
+            from ..ops.dlf import (
+                collect_lf_grids,
+                loop_filter_frame,
+                pick_filter_level_by_q,
+            )
+
+            bsize_g, skip_inter_g, skip_g, txd_g = collect_lf_grids(
+                sb_plans, self.mi_rows, self.mi_cols, sb_mi)
+            if timing:
+                t0 = self._tick("lf_grids", t0)
+            if self.enable_dlf:
+                if self.preset <= 6 and os.environ.get(
+                        "SVT_TPU_NO_DLF_SEARCH") != "1":
+                    # frame-level level search (enable_dlf_flag=2 quality
+                    # mode): SSE-scored halving descent (ops/dlf.py)
+                    from ..ops.dlf import search_filter_level
+
+                    levels = search_filter_level(
+                        pctx[0].src, [p.recon for p in pctx], seq.width,
+                        seq.height, fr.base_q_idx, is_key,
+                        fr.lf_sharpness, bsize_g, skip_inter_g,
+                        seq.subsampling_x, seq.subsampling_y,
+                        seq.bit_depth, txd_g=txd_g)
+                else:
+                    levels = pick_filter_level_by_q(fr.base_q_idx, is_key,
+                                                    seq.bit_depth,
+                                                    seq.width * seq.height)
+                if any(levels):
+                    fr.lf_level = tuple(levels)
+                    loop_filter_frame([p.recon for p in pctx], seq.width,
+                                      seq.height, levels, fr.lf_sharpness,
+                                      bsize_g, skip_inter_g,
+                                      seq.subsampling_x, seq.subsampling_y,
+                                      seq.bit_depth, txd_g=txd_g)
+                if timing:
+                    t0 = self._tick("dlf", t0)
+            if seq.enable_restoration:
+                # loop restoration reads 2 deblocked rows at each stripe
+                # boundary (save_deblock_boundary_lines); snapshot the
+                # pre-CDEF recon
+                deblock_planes = [p.recon.copy() for p in pctx]
+            if seq.enable_cdef:
+                from .rd import rdcost
+
+                rdm = compute_rdmult(fr.base_q_idx, seq.bit_depth)
+                rd_fn = lambda rate, dist: rdcost(rdm, rate, dist)  # noqa: E731
+                if _group is not None:
+                    # group pipeline: defer to one batched device call
+                    st = {"tw": tw, "fr": fr, "cdfs": cdfs,
+                          "sb_plans": sb_plans, "pctx": pctx,
+                          "deblock": deblock_planes,
+                          "cdef_job": dict(
+                              recon_planes=[p.recon for p in pctx],
+                              src_planes=[p.src for p in pctx],
+                              skip_g=skip_g, mi_rows=self.mi_rows,
+                              mi_cols=self.mi_cols,
+                              base_q_idx=fr.base_q_idx, rdcost_fn=rd_fn)}
+                    _group.append(st)
+                    return st
+
+                _cdef = self._pick_cdef()
+                res = _cdef(
+                    [p.recon for p in pctx], [p.src for p in pctx], skip_g,
+                    self.mi_rows, self.mi_cols, fr.base_q_idx, rd_fn,
+                    level=self._cdef_search_level, bit_depth=seq.bit_depth)
+                self._apply_cdef_result(fr, tw, res)
+                if timing:
+                    t0 = self._tick("cdef", t0)
+
+        if timing:
+            t0 = self._tick("filters", t0)
+        st = {"tw": tw, "fr": fr, "cdfs": cdfs, "sb_plans": sb_plans,
+              "pctx": pctx, "cdef_job": None, "deblock": deblock_planes}
+        if _group is not None:
+            _group.append(st)
+            return st
+        return self._finalize_frame(st)
+
     @staticmethod
     def _pick_cdef():
         """CDEF backend: native C when it builds, else numpy. Both share
         the full-grid search contract."""
         if cdefc.available():
             return cdefc.cdef_search_frame_c
-        from svt_av1_psyex_tpu.ops.cdef import cdef_search_frame
+        from ..ops.cdef import cdef_search_frame
 
         return cdef_search_frame
+
+    @staticmethod
+    def _apply_cdef_result(fr, tw, res) -> None:
+        fr.cdef_damping = 3 + (fr.base_q_idx >> 6)
+        if res is not None:
+            bits, y_str, uv_str, fb_gi, _ = res
+            fr.cdef_bits = bits
+            fr.cdef_y_strengths = tuple(y_str)
+            fr.cdef_uv_strengths = tuple(uv_str)
+            tw.cdef_fb_map = fb_gi
+        else:
+            fr.cdef_bits = 0
+            fr.cdef_y_strengths = (0,)
+            fr.cdef_uv_strengths = (0,)
+
+    def _finalize_frame(self, st: dict) -> bytes:
+        """Bitstream pass + packaging + DPB update (the tail of
+        encode_frame; split out so the group pipeline can defer it)."""
+        import os
+        import time
+
+        timing = os.environ.get("SVT_TPU_TIMING") == "1"
+        t0 = time.perf_counter() if timing else 0.0
+        seq = self.seq
+        tw, fr, cdfs = st["tw"], st["fr"], st["cdfs"]
+        pctx = st["pctx"]
+        if seq.enable_restoration and st.get("deblock") is not None:
+            self._search_apply_lr(st)
+            if timing:
+                t0 = self._tick("lr", t0)
+        if fr.tile.tile_cols == 1:
+            for node, r, c in st["sb_plans"]:
+                tw.write_superblock(node, r, c)
+            tile_payload = tw.finish()
+        else:
+            tile_payload = self._write_tiles(st)
+        if timing:
+            t0 = self._tick("ec", t0)
+        # frame-context save: keep adapted values, reset visit counters
+        if not fr.disable_frame_end_update_cdf:
+            cdfs.reset_counters()
+
+        w = BitWriter()
+        write_frame_header(seq, fr, w)
+        w.byte_align()
+        frame_payload = w.data() + tile_payload
+
+        tu = temporal_delimiter()
+        if self.frame_count == 0:
+            tu += wrap_obu(ObuType.SEQUENCE_HEADER, write_sequence_header(seq))
+        tu += wrap_obu(ObuType.FRAME, frame_payload)
+        self.frame_count += 1
+        maxv = (1 << seq.bit_depth) - 1
+        dtype = np.uint8 if seq.bit_depth == 8 else np.uint16
+        if seq.enable_superres and seq.superres_upscaled_width:
+            # normative superres upscale (spec 7.16): the decoder output
+            # (and hence our recon / DPB entry) is the upscaled frame
+            from ..ops.resize import upscale_normative
+
+            up = []
+            for i, p in enumerate(pctx):
+                ssx = 0 if i == 0 else seq.subsampling_x
+                cw = (seq.width + ssx) >> ssx
+                aw = self.aligned_w >> ssx  # mi-aligned decoded width
+                ow = (seq.superres_upscaled_width + ssx) >> ssx
+                rec = np.clip(p.recon, 0, maxv).astype(dtype)
+                up.append(upscale_normative(rec[:, :aw], ow,
+                                            seq.bit_depth, coded_w=cw))
+            self.last_recon = up
+            entry_recon = [r.copy() for r in up]
+        else:
+            self.last_recon = [np.clip(p.recon, 0, maxv).astype(dtype) for p in pctx]
+            entry_recon = None
+        self.last_film_grain = fr.film_grain
+        self.last_frame_gm = fr.gm
+        self._last_sb_plans = [n for (n, _r, _c) in st.get("sb_plans", [])]
+        # reference update: the recon + saved frame context land in every
+        # slot selected by refresh_frame_flags
+        from ..bitstream.headers import GM_DEFAULT_MAT
+
+        gm_mats = tuple(
+            (fr.gm[i][1] if fr.gm and fr.gm[i] is not None
+             else GM_DEFAULT_MAT) for i in range(7))
+        # MFMV: save this frame's 8x8 motion field for future projection
+        # (av1_copy_frame_mvs / spec 7.20 motion vector storage)
+        saved_mvs = None
+        if tw.mi_state is not None and seq.enable_ref_frame_mvs:
+            from .mfmv import compute_ref_frame_side, save_frame_mvs
+
+            side = compute_ref_frame_side(fr, seq.order_hint_bits)
+            saved_mvs = save_frame_mvs(tw.mi_state, side)
+        entry = {"recon": (entry_recon if entry_recon is not None
+                           else [p.recon.copy() for p in pctx]),
+                 "order_hint": fr.order_hint,
+                 "film_grain": fr.film_grain,
+                 "gm_mats": gm_mats,
+                 "saved_mvs": saved_mvs,
+                 "frame_is_intra": bool(fr.frame_is_intra),
+                 "ref_order_hints": tuple(fr.ref_order_hints[:7]),
+                 "cdfs": cdfs if not fr.disable_frame_end_update_cdf else None}
+        for i in range(8):
+            if fr.refresh_frame_flags & (1 << i):
+                self.slots[i] = entry
+        return tu
+
+    def _write_tiles(self, st: dict) -> bytes:
+        """Multi-tile bitstream pass: one independent TileWriter per tile
+        column (fresh CDFs from the frame-initial state, tile-local
+        contexts/coords), assembled as a full-coverage tile group
+        (spec 5.11.1; ec_process.c per-tile loop). Tile 0 carries the
+        frame-context save (context_update_tile_id = 0)."""
+        seq = self.seq
+        tw, fr, cdfs = st["tw"], st["fr"], st["cdfs"]
+        sb_mi = 32 if seq.use_128x128_superblock else 16
+        tcs = [min(sb * sb_mi, self.mi_cols)
+               for sb in fr.tile.col_starts_sb]
+        payloads = []
+        # every tile starts from the frame-initial CDF state: clone BEFORE
+        # any tile adapts (the context_update tile keeps the saved object)
+        tile_cdfs = [cdfs if t == fr.tile.context_update_tile_id
+                     else cdfs.clone() for t in range(fr.tile.tile_cols)]
+        for t in range(fr.tile.tile_cols):
+            c0, c1 = tcs[t], tcs[t + 1]
+            tw_t = TileWriter(seq, fr, tile_cdfs[t], self.mi_rows, c1 - c0)
+            tw_t.coeff_writer = CoeffWriter(tw_t, self.mi_rows, c1 - c0,
+                                            seq.subsampling_x,
+                                            seq.subsampling_y)
+            if tw.mi_state is not None:
+                from .mvp import MiState
+
+                tw_t.mi_state = MiState(self.mi_rows, c1 - c0)
+                tw_t.mi_state.sign_bias = tw.mi_state.sign_bias
+            if tw.sb_qindex_map is not None:
+                s0, s1 = c0 // sb_mi, (c1 + sb_mi - 1) // sb_mi
+                tw_t.sb_qindex_map = tw.sb_qindex_map[:, s0:s1]
+            if tw.cdef_fb_map is not None:
+                tw_t.cdef_fb_map = tw.cdef_fb_map[:, c0 >> 4 : (c1 + 15) >> 4]
+            if tw.seg_target is not None:
+                tw_t.seg_target = tw.seg_target[:, c0:c1]
+                tw_t.seg_last_active = tw.seg_last_active
+            tw_t.lr_infos = tw.lr_infos
+            tw_t.lr_mi_col0 = c0
+            for node, r, c in st["sb_plans"]:
+                if c0 <= c < c1:
+                    tw_t.write_superblock(node, r, c - c0)
+            payloads.append(tw_t.finish())
+        # tile_group_obu: tile_start_and_end_present_flag = 0 (+ byte
+        # alignment), then [tile_size_minus_1 le(n)] payload per non-last
+        out = b"\x00"
+        for i, p in enumerate(payloads):
+            if i < len(payloads) - 1:
+                out += (len(p) - 1).to_bytes(fr.tile.tile_size_bytes,
+                                             "little")
+            out += p
+        return out
+
+    def _grain_model_params(self, planes, disp_idx: int, is_key: bool):
+        """Content-fitted grain parameters (ops/noise_model.py, the
+        reference's denoise_and_model path, noise_model.c:2280): flat
+        blocks + AR fit + strength LUT, cached per keyframe interval.
+        Returns FilmGrainParams or None (fall back to the flat ladder)."""
+        if is_key or not hasattr(self, "_grain_fit"):
+            from ..ops.noise_model import estimate_grain_params
+
+            seq = self.seq
+            ss = (seq.subsampling_x, seq.subsampling_y)
+            try:
+                self._grain_fit = estimate_grain_params(
+                    [np.asarray(p) for p in planes], seq.bit_depth, ss)
+            except np.linalg.LinAlgError:
+                self._grain_fit = None
+        fit = self._grain_fit
+        if fit is None:
+            return None
+        from ..ops.film_grain import FilmGrainParams
+
+        return FilmGrainParams(
+            apply_grain=True,
+            grain_seed=(7391 + 3 * disp_idx) & 0xFFFF,
+            num_y_points=len(fit["scaling_points_y"]),
+            scaling_points_y=list(fit["scaling_points_y"]),
+            num_cb_points=len(fit["scaling_points_cb"]),
+            scaling_points_cb=list(fit["scaling_points_cb"]),
+            num_cr_points=len(fit["scaling_points_cr"]),
+            scaling_points_cr=list(fit["scaling_points_cr"]),
+            chroma_scaling_from_luma=False,
+            scaling_shift=fit["scaling_shift"],
+            ar_coeff_lag=fit["ar_coeff_lag"],
+            ar_coeffs_y=list(fit["ar_coeffs_y"]),
+            ar_coeffs_cb=list(fit["ar_coeffs_cb"]),
+            ar_coeffs_cr=list(fit["ar_coeffs_cr"]),
+            ar_coeff_shift=fit["ar_coeff_shift"],
+            cb_mult=fit["cb_mult"], cb_luma_mult=fit["cb_luma_mult"],
+            cb_offset=fit["cb_offset"], cr_mult=fit["cr_mult"],
+            cr_luma_mult=fit["cr_luma_mult"], cr_offset=fit["cr_offset"],
+            overlap_flag=True)
+
+    def _film_grain_params(self, disp_idx: int, noise: float | None = None):
+        """Per-frame grain parameters from the configured strength
+        (SVT --film-grain ladder reduced to a flat scaling curve with
+        lag-1 AR; seed varies per display frame like fgs_table-less SVT).
+        Match: grain param derivation in pic_analysis/noise path."""
+        from ..ops.film_grain import FilmGrainParams
+
+        s = min(self.film_grain * 4, 255)
+        if noise is not None:
+            # adaptive-film-grain: scale the ladder by measured source
+            # noise so synthetic grain tracks the denoised content
+            s = int(np.clip(s * min(noise / 2.0, 2.0), 1, 255))
+        return FilmGrainParams(
+            apply_grain=True,
+            grain_seed=(7391 + 3 * disp_idx) & 0xFFFF,
+            num_y_points=2,
+            scaling_points_y=[(0, s), (255, s)],
+            chroma_scaling_from_luma=False,
+            num_cb_points=0, num_cr_points=0,
+            scaling_shift=8,
+            ar_coeff_lag=1,
+            ar_coeffs_y=[10, 24, 10, 35],
+            ar_coeffs_cb=[], ar_coeffs_cr=[],
+            ar_coeff_shift=7,
+            overlap_flag=True)
+
+    def _search_apply_lr(self, st: dict) -> None:
+        """Loop restoration (spec 7.17): per-RU Wiener/SGR search on the
+        post-CDEF recon, exact striped apply; updates recon in place and
+        fills the lr_params header + per-SB unit syntax state. Match:
+        rest_process.c:523 + restoration_pick.c rest_finish_search."""
+        from .rd import compute_rdmult
+        from .restoration import search_plane, type_cost_tables
+
+        seq = self.seq
+        fr, tw, pctx = st["fr"], st["tw"], st["pctx"]
+        deblock = st["deblock"]
+        rdm = compute_rdmult(fr.base_q_idx, seq.bit_depth)
+        tc = type_cost_tables(st["cdfs"])
+        unit_y = 256
+        uv_shift = 1 if (seq.subsampling_x and seq.subsampling_y
+                         and not seq.mono_chrome) else 0
+        infos = []
+        types = []
+        nplanes = 1 if seq.mono_chrome else 3
+        for i in range(nplanes):
+            p = pctx[i]
+            ss_x, ss_y = p.ss_x, p.ss_y
+            pw = (seq.width + ss_x) >> ss_x
+            ph = (seq.height + ss_y) >> ss_y
+            unit = unit_y if i == 0 else unit_y >> uv_shift
+            info, restored = search_plane(
+                p.src, p.recon, deblock[i], pw, ph, ss_y, unit,
+                seq.bit_depth, rdm, chroma=i > 0, preset=self.preset,
+                type_costs=tc)
+            infos.append(info)
+            types.append(info.frame_type)
+            if restored is not None:
+                p.recon[:restored.shape[0], :restored.shape[1]] = restored
+        while len(types) < 3:
+            infos.append(None)
+            types.append(0)
+        fr.lr_frame_types = tuple(types)
+        fr.lr_unit_size = unit_y
+        fr.lr_uv_shift = uv_shift
+        tw.lr_infos = infos
+        import os as _os
+
+        if _os.environ.get("SVT_TPU_TIMING") == "1":
+            from . import restoration as _restmod
+
+            tm = getattr(self, "timing", None) or {}
+            for k, v in _restmod.TICKS.items():
+                tm[k] = tm.get(k, 0.0) + v
+            _restmod.TICKS.clear()
+            self.timing = tm
+
+    def grained_output(self) -> list:
+        """Display planes for the last emitted frame: recon + film grain
+        synthesis (what a conformant decoder outputs; refs are pre-grain,
+        spec 7.18.3)."""
+        fg = getattr(self, "last_film_grain", None)
+        seq = self.seq
+        dw = seq.disp_width  # superres recon is already upscaled
+        if fg is None:
+            return [p[: (seq.height + (i > 0) * seq.subsampling_y)
+                      >> (seq.subsampling_y if i else 0),
+                      : (dw + (i > 0) * seq.subsampling_x)
+                      >> (seq.subsampling_x if i else 0)]
+                    for i, p in enumerate(self.last_recon)]
+        from ..ops.film_grain import apply_grain
+
+        return apply_grain(self.last_recon, fg, dw, seq.height,
+                           seq.bit_depth, seq.subsampling_x,
+                           seq.subsampling_y, seq.mono_chrome)
 
     def keyframe_depths(self) -> tuple:
         """Lattice depths of this encoder's keyframes."""
@@ -561,7 +1336,7 @@ class Av1Encoder(ref_encoder.Av1Encoder):
         sk = cdf_costs(cdfs0.skip[0][0])
         psy_fixed = 0
         if self.psy_rd > 0.0:
-            from svt_av1_psyex_tpu.ops.psy_dist import hvs_modulation_factor
+            from ..ops.psy_dist import hvs_modulation_factor
 
             psy_fixed = int(round(
                 hvs_modulation_factor(self.psy_rd, True, 0) * 256))
@@ -632,6 +1407,22 @@ class Av1Encoder(ref_encoder.Av1Encoder):
                               "cdef": t3 - t2, "finalize": t4 - t3,
                               "host": t4 - t1}
         return tus
+
+    def _show_existing_tu(self, slot: int) -> bytes:
+        """show_existing_frame TU (spec 5.9.2 first branch)."""
+        w = BitWriter()
+        w.f(1, 1)  # show_existing_frame
+        w.f(slot, 3)  # frame_to_show_map_idx
+        w.trailing_bits()
+        tu = temporal_delimiter()
+        tu += wrap_obu(ObuType.FRAME_HEADER, w.data())
+        entry = self.slots[slot]
+        maxv = (1 << self.seq.bit_depth) - 1
+        dtype = np.uint8 if self.seq.bit_depth == 8 else np.uint16
+        self.last_recon = [np.clip(p, 0, maxv).astype(dtype)
+                           for p in entry["recon"]]
+        self.last_film_grain = entry.get("film_grain")
+        return tu
 
 
 def encode_plans(enc: Av1Encoder, plans: list, sources: dict,

@@ -1,12 +1,17 @@
-"""Alt-ref temporal filtering for the port (counterpart of
-svt_av1_psyex_tpu/codec/tf.py `temporal_filter` and
-`_temporal_filter_device`, one function here).
+"""Alt-ref temporal filtering: motion-compensated non-local-mean denoising
+of anchor (ARF) sources before encoding.
 
-The decay (with its noise estimate) is the JAX package's, numpy-only at
-import; the filter itself runs the port's device/tf.py on the device
-the caller names. There is no switch to the per-block host loop: the
-JAX package keeps that loop as a second opinion, and the tests may call
-it.
+Counterpart: the reference's temporal filtering process
+(temporal_filtering.c svt_av1_apply_temporal_filter_planewise_medium /
+calculate_decay_factor): per-block full-pel motion search against each
+window frame, per-block exp(-err/decay) weights accumulated pixel-wise,
+with decay derived from noise level and q. The search and the
+accumulation run as one batched torch program on the device the caller
+names (device/tf.py); the decay and its noise estimate are host numpy.
+
+Encoder-side only: no bitstream syntax. The filtered frame becomes the
+coded ARF source; hierarchical B frames then predict from a denoised
+anchor.
 """
 
 from __future__ import annotations
@@ -14,12 +19,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from svt_av1_psyex_tpu.codec.tf import _decay_px
-
 from ..device.tf import BLK, tf_filter
 from ..runtime import resolve_device
 
-__all__ = ["temporal_filter"]
+__all__ = ["estimate_noise_mad", "temporal_filter"]
+
+
+def estimate_noise_mad(luma: np.ndarray) -> float:
+    """Median-absolute-deviation of the Laplacian — the reference's
+    svt_estimate_noise_fp16 shape (temporal_filtering.c noise estimate),
+    simplified to a plain float."""
+    x = luma.astype(np.int64)
+    lap = (4 * x[1:-1, 1:-1] - x[:-2, 1:-1] - x[2:, 1:-1]
+           - x[1:-1, :-2] - x[1:-1, 2:])
+    mad = np.median(np.abs(lap))
+    # median|Laplacian| for N(0,s^2) noise is ~3.0*s (weights 4,-1x4)
+    return float(mad) / 3.0
+
+
+def _decay_px(y: np.ndarray, qindex: int, bit_depth: int,
+              strength: int) -> float:
+    """Per-pixel squared-error decay for the exp weights (shared by the
+    host and device paths)."""
+    noise = estimate_noise_mad(y)
+    q_decay = max(0.5, min(4.0, (qindex / 120.0) ** 2))
+    decay = max(12.0 * (1 << (2 * (bit_depth - 8))),
+                2.5 * noise * noise) * q_decay
+    # --tf-strength 0..4: power-of-two filter strength ladder
+    # (temporal_filtering.c:2996 tf_shift_factor; 3 = default)
+    return decay * 2.0 ** (min(strength, 4) - 3)
 
 
 def temporal_filter(center: list, neighbors: list, qindex: int,

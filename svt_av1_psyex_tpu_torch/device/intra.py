@@ -229,7 +229,7 @@ def qp_row_for(qindex: int, dc_delta: int, ac_delta: int,
                bit_depth: int) -> np.ndarray:
     """(10,) int32 = (zbin, round, quant, quant_shift, dequant) x (dc,
     ac) of the luma plane at `qindex`."""
-    from svt_av1_psyex_tpu.ops.quant import build_plane_quant
+    from ..ops.quant import build_plane_quant
 
     pq = build_plane_quant(qindex, dc_delta, ac_delta, bit_depth)
     return np.array([pq.zbin[0], pq.round[0], pq.quant[0],

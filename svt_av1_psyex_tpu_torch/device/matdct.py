@@ -3,13 +3,16 @@ svt_av1_psyex_tpu/device/matdct.py).
 
 The AV1 integer transforms are butterfly networks whose only
 nonlinearities are per-stage roundings; their rounding-free linear map
-is a dense (n, n) matrix, probed here from the numpy networks in the
-JAX package's ops/txfm.py. The analysis tier only decides (the
+is a dense (n, n) matrix, probed here from the numpy networks in
+ops/txfm.py. The analysis tier only decides (the
 conformant commit requantizes exactly in C), so it runs the transforms
 as float32 matrix products. `_sep2d` is the blk-64 path and the plain
-version of the fullloop kernel's transforms; it is a plain matmul and
-may go to `torch.matmul`, in full float32 (runtime.resolve_device turns
-TF32 off).
+version of the fullloop kernel's transforms. On the card it is a plain
+float32 `torch.matmul` (runtime.resolve_device turns TF32 off). On the
+CPU it is the same float32 FMA chains evaluated elementwise in a fixed
+order (`_fma_chain`), so that one input has one answer: the CPU path is
+what holds the port's streams equal to the JAX package's, and a BLAS
+call there may pick its kernels by threads and load.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from svt_av1_psyex_tpu.ops import txfm as txfm_ref
+from ..ops import txfm as txfm_ref
 
 _AMP = 1 << 20
 
@@ -61,16 +64,34 @@ def inv_mats(n: int) -> tuple[np.ndarray, np.ndarray]:
             np.ascontiguousarray(gr, np.float32))
 
 
+def _fma_chain(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x @ m.T for float32 x (M, K), m (N, K): each output the float32
+    FMA chain over k = 0..K-1 from 0, which is what sgemm computes at
+    these widths, evaluated one k at a time. A product of two float32
+    numbers is exact in float64, so each step is fmaf: one rounding to
+    float32 of the exact sum (up to a float64 rounding ~2^-29 times
+    rarer). No BLAS and no threads decide the order."""
+    xt = x.double().T.contiguous()        # (K, M): one row per step
+    mt = m.double().T.contiguous()        # (K, N)
+    acc = torch.zeros((x.shape[0], m.shape[0]), dtype=torch.float64)
+    out = torch.empty(acc.shape, dtype=torch.float32)
+    for k in range(x.shape[1]):
+        acc.addcmul_(xt[k, :, None], mt[k])
+        acc.copy_(out.copy_(acc))         # round to float32
+    return out
+
+
 def _sep2d(x: torch.Tensor, mc: torch.Tensor,
            mr: torch.Tensor) -> torch.Tensor:
     """out[b,i,l] = sum_{j,k} mc[i,j] x[b,j,k] mr[l,k]: the row pass,
-    then the column pass, each one flat float32 matmul with M = B*n
+    then the column pass, each one flat float32 product with M = B*n
     (the reference's operation order)."""
     b, n, _ = x.shape
     cn_r, cn_c = mr.shape[0], mc.shape[0]
-    t = x.reshape(b * n, n) @ mr.T
+    mul = _fma_chain if x.device.type == "cpu" else (lambda a, m: a @ m.T)
+    t = mul(x.reshape(b * n, n), mr)
     t = t.reshape(b, n, cn_r).transpose(1, 2).reshape(b * cn_r, n)
-    o = t @ mc.T
+    o = mul(t, mc)
     return o.reshape(b, cn_r, cn_c).transpose(1, 2)
 
 

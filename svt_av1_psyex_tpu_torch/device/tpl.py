@@ -20,7 +20,7 @@ sequential by nature. The recon is carried in float32, unrounded, as the
 reference carries it; the recrf residual is therefore float32.
 
 Only the per-block stats grids leave the device; the host synthesizer
-and the r0/beta math are the JAX package's codec/tpl.py.
+and the r0/beta math are codec/tpl.py.
 """
 
 from __future__ import annotations

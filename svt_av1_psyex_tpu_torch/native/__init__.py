@@ -1,1 +1,2 @@
-"""Native (C) backends the port wraps without the JAX package's device tier."""
+"""Native (C) backends: ctypes bindings of the C host tier (native/*.c at
+the repository root) and the dav1d conformance shim."""

@@ -1,27 +1,62 @@
-"""The native C CDEF backend (native/cdef.c), without the JAX device tier.
+"""ctypes frontend for the C CDEF kernels (native/cdef.c).
 
-The JAX package's frontend (svt_av1_psyex_tpu/native/cdefc.py) imports
-its frame preparation and strength selection through device/cdef.py,
-which imports jax. Those two helpers are host numpy, so they are copied
-here (from device/cdef.py `_prep_frame`, `_select_strengths`), and the
-same C entry points are called through the JAX package's ctypes
-binding (`_lib`, `available`), which is jax-free.
+Same frame contract as ops.cdef.cdef_search_frame: full-grid padded
+planes + per-8x8-unit mask, per-candidate MSE search, host greedy
+dual-strength selection, filter apply in place. The frame preparation
+and the strength selection are host numpy (`_prep_frame`,
+`_select_strengths`).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
-from svt_av1_psyex_tpu.native.cdefc import _I64P, _U8P, _lib, _p32, available
-from svt_av1_psyex_tpu.ops.cdef import (
+from ..ops.cdef import (
     _SEARCH_SUBSAMPLE,
     CDEF_STRENGTH_BITS,
     CDEF_VERY_LARGE,
     candidate_strengths,
     joint_strength_search_dual,
 )
+from .ecenc import get_lib
 
 __all__ = ["available", "cdef_search_frame_c"]
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+_registered = False
+
+
+def _lib():
+    global _registered
+    lib = get_lib()
+    if lib is not None and not _registered and hasattr(lib, "svt_cdef_search"):
+        lib.svt_cdef_dirs.argtypes = [_I32P] + [ctypes.c_int] * 4 + [_I32P] * 2
+        lib.svt_cdef_search.argtypes = (
+            [_I32P, ctypes.c_int, _I32P, _I32P, ctypes.c_int,
+             _I32P, ctypes.c_int, _I32P, _I32P, ctypes.c_int,
+             _U8P] + [ctypes.c_int] * 3 + [_I32P] * 2 +
+            [_I32P, ctypes.c_int] + [ctypes.c_int] * 4 + [_I64P, _I64P])
+        lib.svt_cdef_apply.argtypes = (
+            [_I32P, ctypes.c_int, _I32P, _I32P, ctypes.c_int,
+             _I32P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _I32P, _I32P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _U8P] + [ctypes.c_int] * 2 + [_I32P] * 4 + [ctypes.c_int] * 4)
+        _registered = True
+    return lib
+
+
+def available() -> bool:
+    lib = _lib()
+    return lib is not None and hasattr(lib, "svt_cdef_search")
+
+
+def _p32(a):
+    return a.ctypes.data_as(_I32P)
 
 
 def _prep_frame(recon_planes, src_planes, skip_g, mi_rows, mi_cols):
@@ -104,8 +139,7 @@ def _select_strengths(mse0_all, mse1_all, maskg, nvfb, nhfb, cands,
 def cdef_search_frame_c(recon_planes, src_planes, skip_g, mi_rows: int,
                         mi_cols: int, base_q_idx: int, rdcost_fn,
                         level: int = 3, bit_depth: int = 8):
-    """Drop-in for ops.cdef.cdef_search_frame backed by native/cdef.c
-    (the JAX package's cdefc.cdef_search_frame_c, same C calls)."""
+    """Drop-in for ops.cdef.cdef_search_frame backed by native/cdef.c."""
     prep = _prep_frame(recon_planes, src_planes, skip_g, mi_rows, mi_cols)
     if prep is None:
         return None

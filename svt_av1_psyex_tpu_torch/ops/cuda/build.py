@@ -5,8 +5,8 @@ Each `<name>.cu` beside this file is compiled by nvcc for Hopper
 ctypes: no PyTorch headers, so a build takes seconds, and no ninja.
 Output goes to build/torch_kernels/ at the repository root (ignored by
 git); a library is rebuilt when it is missing or older than its source,
-like the JAX package's gcc-at-first-use native backends
-(svt_av1_psyex_tpu/native/ecenc.py). A failed build raises.
+like the gcc-at-first-use native backends (native/ecenc.py). A failed
+build raises.
 """
 
 from __future__ import annotations

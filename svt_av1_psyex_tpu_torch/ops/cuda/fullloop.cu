@@ -12,23 +12,42 @@
 // (bits<<9), eob (default-scan position + 1), sse = sum x^2, zeros;
 // optionally the inverse residual (B, n, n) f32.
 //
-// Design. The TPU kernel turns each 2-D transform into one Kronecker
-// GEMM so that the block batch fills the 128x128 matrix unit; that is a
-// TPU layout choice. Here one CTA of 256 threads owns a tile of 1024
-// coefficients (one 32x32 block, or 4 / 16 / 64 smaller ones), keeps the
-// block, the intermediate and the two matrices of the current pass in
-// shared memory, and runs each transform separably, row pass then column
-// pass, as fp32 FMAs on the CUDA cores: no TF32, no tensor-core MMA, the
-// reference's HIGHEST precision. Each thread owns four consecutive
-// coefficients of one block, so a block's reductions (dist, sse, nnz,
-// sum log2, eob max) are warp shuffles within its lanes, plus a fixed-order
-// sum over the block's warps in shared memory for n >= 16: the result does
-// not depend on scheduling.
+// Bound. Per coefficient the kernel reads 4 bytes (and writes 4 more with
+// the inverse) and does 4n fp32 FMAs: at n = 16 and 32 the FP32 pipes
+// bound it, at n = 4 and 8 device-memory bytes. No tensor cores: fp32
+// inputs reach them only as TF32, whose rounding can flip a quantization
+// decision against the reference's HIGHEST-precision transforms.
 //
-// Bound: per coefficient it reads 4 bytes and writes at most 4, and does
-// 4n FMAs, so at n = 32 it is bound by the shared-memory operand traffic of
-// the scalar FMAs and at n = 4 by device-memory bytes. A first kernel is
-// right and simple; wgmma/TMA tiling is for later work.
+// Design. Each 1-D pass of a block is N dot products of length N. A thread
+// owns one row of each of kRows blocks for the row passes and the same
+// column of those blocks for the column passes, with the kRows x N inputs
+// in registers. It makes two outputs at a time: per step of four k, two
+// 16-byte shared-memory loads of transform coefficients, which every
+// thread of the warp reads at the same address (a broadcast), feed
+// 2 x kRows x 4 FMAs. Shared memory holds the CTA's tile between passes
+// (rows padded to N + 1 words, so a warp reading 32 rows or 32 columns
+// touches 32 banks) and the four matrices of n, copied in once per CTA.
+// Reading both FMA operands from shared memory would cap the kernel at
+// 1/8 of the FP32 rate; the coefficients are not in __constant__ memory
+// because a 4 KB matrix per pass at n = 32 thrashes the constant cache
+// (measured at 10% of the bound). The loop over outputs is not unrolled,
+// so the code stays small at every n. Tiles are loaded and the inverse
+// stored with coalesced 4-byte accesses.
+//
+// What bounds it in practice: instruction issue. Besides its 4n FMAs a
+// coefficient costs about 25 other instructions (quantizer, rate terms,
+// loads and stores), as many as the FMAs at n = 8 and half of them at
+// n = 16, so the kernel stays below the FMA and byte bounds. The rate
+// proxy's log2(1 + q) is a shared-memory table, filled by log2f on the
+// device (log2f inline costs about 25 instructions per coefficient).
+//
+// Order of operations. Each coefficient, quantized level, eob, nnz and
+// inverse sample comes from one FMA chain per output, k = 0..N-1 from 0,
+// row pass then column pass, as the reference's separable transform
+// orders it. The per-block sums run per thread (sum log2 down its
+// column, dist and sse along its row, x read again from L2), then as a
+// butterfly over the block's N lanes: a fixed order that does not depend
+// on scheduling, and no atomics.
 //
 // Accuracy: the quantizer keeps the reference's operation order with
 // explicit round-to-nearest intrinsics (nvcc must not contract it), the
@@ -39,238 +58,338 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kTile = kThreads * kPerThread;  // coefficients per CTA
-
 constexpr int kRateNz = 1229;   // per nonzero coefficient
 constexpr int kRateLog2 = 614;  // per log2(1+|q|) of each nonzero
 constexpr int kRateZero = 154;  // per zero coefficient before eob
 constexpr int kRateEob = 1946;  // per log2(1+eob)
+
+// Per n: fc, fr, gc, gr (n*n floats each, row-major [out][in]) and the
+// default-scan position of each row-major coefficient (n*n ints), in
+// global memory, written once per n by svt_fullloop_set_constants.
+__host__ __device__ constexpr int mat_off(int n) {
+  return n == 4 ? 0 : n == 8 ? 64 : n == 16 ? 320 : 1344;
+}
+__host__ __device__ constexpr int spos_off(int n) {
+  return n == 4 ? 0 : n == 8 ? 16 : n == 16 ? 80 : 336;
+}
+__device__ __align__(16) float g_mats[1344 + 4 * 1024];
+__device__ int g_spos[336 + 1024];
+// log2f(1 + q) for the quantized levels q < kLog2Levels, made on the
+// device by log2f itself, so that a lookup equals the call it replaces
+constexpr int kLog2Levels = 256;
+__device__ float g_log2q[kLog2Levels];
+
+__global__ void fill_log2q() {
+  const int q = threadIdx.x;
+  g_log2q[q] = log2f(__fadd_rn(1.0f, static_cast<float>(q)));
+}
+
+// the rare level beyond the table: a real call, so that the common path
+// does not carry log2f's instructions under a predicate
+__device__ __noinline__ float log2_1p(int q) {
+  return log2f(__fadd_rn(1.0f, static_cast<float>(q)));
+}
+
+template <int N>
+struct Cfg {
+  static constexpr int kThreads = N == 32 ? 128 : 256;
+  static constexpr int kRows = 2;                  // blocks per thread
+  static constexpr int kHalf = kThreads / N;       // blocks per row group
+  static constexpr int kBlocks = kRows * kHalf;    // blocks per CTA
+  static constexpr int S = N + 1;                  // padded row stride
+  static constexpr int kMatWords = 4 * N * N;  // then N * N scan positions
+                                               // and the log2 table
+  static constexpr int kSmemBytes =
+      (kMatWords + N * N + kLog2Levels + kBlocks * N * S) * 4;
+};
+
+// CTAs per SM the register budget must allow: 4 caps a thread at 128
+// registers at n = 32 and at 64 below, where more CTAs measured no faster
+constexpr int kMinCtas = 4;
+
+template <typename T> struct Vec4;
+template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
 
 struct QParams {
   float deq_dc, deq_ac, rnd_dc, rnd_ac, zbin_dc, zbin_ac;
   int log_scale;
 };
 
-template <int N, typename T>
-__global__ void __launch_bounds__(kThreads)
-fullloop_kernel(const T* __restrict__ resid, long long nblocks,
-                const float* __restrict__ fc, const float* __restrict__ fr,
-                const float* __restrict__ gc, const float* __restrict__ gr,
-                const int* __restrict__ spos, QParams qp,
-                float* __restrict__ metrics, float* __restrict__ inv_out) {
-  constexpr int NN = N * N;
-  constexpr int kBlocksPerCta = kTile / NN;
-  constexpr int kThreadsPerBlock = NN / kPerThread;
-  constexpr int kWarpsPerBlock = kThreadsPerBlock / 32;
-
-  __shared__ float xs[kTile];
-  __shared__ float ts[kTile];
-  __shared__ float mat_row[NN];  // row-pass matrix, transposed: [k][l]
-  __shared__ float mat_col[NN];  // column-pass matrix: [i][j]
-  __shared__ float red_f[kThreads / 32][3];
-  __shared__ int red_i[kThreads / 32][2];
-
-  const int tid = threadIdx.x;
-  const int lb = tid / kThreadsPerBlock;             // block within the CTA
-  const long long gb = (long long)blockIdx.x * kBlocksPerCta + lb;
-  const bool valid = gb < nblocks;
-  const int e0 = tid * kPerThread;                   // first tile element
-  const int q0 = e0 - lb * NN;                       // first row-major index
-  float* xb = xs + lb * NN;
-  float* tb = ts + lb * NN;
-
-  for (int i = tid; i < NN; i += kThreads) {
-    mat_row[(i % N) * N + i / N] = fr[i];
-    mat_col[i] = fc[i];
-  }
-  float x[kPerThread];
+// One 1-D pass over the thread's R lines: out[h][l] = sum_k v[h][k] *
+// m[l][k] (m row-major in shared memory), each a chain k = 0..N-1 from 0,
+// handed to emit(h, l, value) two l at a time.
+template <int N, int R, typename Emit>
+__device__ __forceinline__ void pass(const float (&v)[R][N],
+                                     const float* __restrict__ m, Emit emit) {
+#pragma unroll 1
+  for (int l = 0; l < N; l += 2) {
+    float a0[R], a1[R];
 #pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    x[r] = valid ? static_cast<float>(resid[gb * NN + q0 + r]) : 0.0f;
-    xs[e0 + r] = x[r];
-  }
-  __syncthreads();
-
-  // forward row pass: t[j][l] = sum_k x[j][k] * fr[l][k]
+    for (int h = 0; h < R; ++h) a0[h] = a1[h] = 0.0f;
 #pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int j = (q0 + r) / N, l = (q0 + r) % N;
-    float a = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < N; ++k) a = fmaf(xb[j * N + k], mat_row[k * N + l], a);
-    tb[j * N + l] = a;
-  }
-  __syncthreads();
-
-  // forward column pass: c[i][l] = sum_j fc[i][j] * t[j][l]
-  float c[kPerThread];
+    for (int k = 0; k < N; k += 4) {
+      const float4 m0 = *reinterpret_cast<const float4*>(m + l * N + k);
+      const float4 m1 = *reinterpret_cast<const float4*>(m + (l + 1) * N + k);
 #pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int i = (q0 + r) / N, l = (q0 + r) % N;
-    float a = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < N; ++j) a = fmaf(mat_col[i * N + j], tb[j * N + l], a);
-    c[r] = a;
-  }
-  __syncthreads();  // every read of ts and of the forward matrices is done
-
-  // quantize, dequantize, rate terms
-  int nnz = 0, eob = 0;
-  float slog = 0.0f;
-  const float num = static_cast<float>(1 << qp.log_scale);
-#pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int q = q0 + r;
-    const bool dc = q == 0;
-    const float deq = dc ? qp.deq_dc : qp.deq_ac;
-    const float rnd = dc ? qp.rnd_dc : qp.rnd_ac;
-    const float zbin = dc ? qp.zbin_dc : qp.zbin_ac;
-    const float ac = fabsf(c[r]);
-    const float scale = __fdiv_rn(num, deq);
-    int qa = static_cast<int>(floorf(__fmul_rn(__fadd_rn(ac, rnd), scale)));
-    qa = ac >= zbin ? max(qa, 0) : 0;
-    int dq = (qa * static_cast<int>(deq)) >> qp.log_scale;
-    if (c[r] < 0.0f) dq = -dq;
-    tb[q] = static_cast<float>(dq);
-    if (qa != 0) {
-      ++nnz;
-      eob = max(eob, __ldg(spos + q) + 1);
-      slog = __fadd_rn(slog, log2f(__fadd_rn(1.0f, static_cast<float>(qa))));
-    }
-  }
-  for (int i = tid; i < NN; i += kThreads) {
-    mat_row[(i % N) * N + i / N] = gr[i];
-    mat_col[i] = gc[i];
-  }
-  __syncthreads();
-
-  // inverse row pass: u[j][l] = sum_k dq[j][k] * gr[l][k]  (into xs)
-#pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int j = (q0 + r) / N, l = (q0 + r) % N;
-    float a = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < N; ++k) a = fmaf(tb[j * N + k], mat_row[k * N + l], a);
-    xb[j * N + l] = a;
-  }
-  __syncthreads();
-
-  // inverse column pass: inv[i][l] = sum_j gc[i][j] * u[j][l]
-  float dist = 0.0f, sse = 0.0f;
-#pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int i = (q0 + r) / N, l = (q0 + r) % N;
-    float a = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < N; ++j) a = fmaf(mat_col[i * N + j], xb[j * N + l], a);
-    if (inv_out != nullptr && valid) inv_out[gb * NN + q0 + r] = a;
-    const float err = __fsub_rn(x[r], a);
-    dist = __fadd_rn(dist, __fmul_rn(err, err));
-    sse = __fadd_rn(sse, __fmul_rn(x[r], x[r]));
-  }
-
-  // per-block reductions: butterflies within the block's lanes ...
-  constexpr int kLanes = kThreadsPerBlock < 32 ? kThreadsPerBlock : 32;
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1) {
-    dist += __shfl_xor_sync(0xffffffffu, dist, off);
-    sse += __shfl_xor_sync(0xffffffffu, sse, off);
-    slog += __shfl_xor_sync(0xffffffffu, slog, off);
-    nnz += __shfl_xor_sync(0xffffffffu, nnz, off);
-    eob = max(eob, __shfl_xor_sync(0xffffffffu, eob, off));
-  }
-  // ... then, for blocks wider than a warp, over its warps in order
-  if constexpr (kWarpsPerBlock > 1) {
-    const int warp = tid / 32;
-    if (tid % 32 == 0) {
-      red_f[warp][0] = dist;
-      red_f[warp][1] = sse;
-      red_f[warp][2] = slog;
-      red_i[warp][0] = nnz;
-      red_i[warp][1] = eob;
-    }
-    __syncthreads();
-    if (tid % kThreadsPerBlock == 0) {
-      const int w0 = lb * kWarpsPerBlock;
-      dist = red_f[w0][0];
-      sse = red_f[w0][1];
-      slog = red_f[w0][2];
-      nnz = red_i[w0][0];
-      eob = red_i[w0][1];
-      for (int w = w0 + 1; w < w0 + kWarpsPerBlock; ++w) {
-        dist += red_f[w][0];
-        sse += red_f[w][1];
-        slog += red_f[w][2];
-        nnz += red_i[w][0];
-        eob = max(eob, red_i[w][1]);
+      for (int h = 0; h < R; ++h) {
+        a0[h] = fmaf(v[h][k], m0.x, a0[h]);
+        a1[h] = fmaf(v[h][k], m1.x, a1[h]);
+        a0[h] = fmaf(v[h][k + 1], m0.y, a0[h]);
+        a1[h] = fmaf(v[h][k + 1], m1.y, a1[h]);
+        a0[h] = fmaf(v[h][k + 2], m0.z, a0[h]);
+        a1[h] = fmaf(v[h][k + 2], m1.z, a1[h]);
+        a0[h] = fmaf(v[h][k + 3], m0.w, a0[h]);
+        a1[h] = fmaf(v[h][k + 3], m1.w, a1[h]);
       }
     }
-  }
-
-  if (valid && tid % kThreadsPerBlock == 0) {
-    const int rate =
-        kRateNz * nnz +
-        static_cast<int>(__fmul_rn(static_cast<float>(kRateLog2), slog)) +
-        kRateZero * max(eob - nnz, 0) +
-        static_cast<int>(__fmul_rn(
-            static_cast<float>(kRateEob),
-            log2f(__fadd_rn(1.0f, static_cast<float>(eob)))));
-    float* m = metrics + gb * 8;
-    m[0] = dist;
-    m[1] = static_cast<float>(rate);
-    m[2] = static_cast<float>(eob);
-    m[3] = sse;
-    m[4] = m[5] = m[6] = m[7] = 0.0f;
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      emit(h, l, a0[h]);
+      emit(h, l + 1, a1[h]);
+    }
   }
 }
 
 template <int N, typename T>
-void launch(const void* resid, long long nblocks, const float* fc,
-            const float* fr, const float* gc, const float* gr,
-            const int* spos, QParams qp, float* metrics, float* inv,
-            cudaStream_t stream) {
-  constexpr int kBlocksPerCta = kTile / (N * N);
-  const long long ctas = (nblocks + kBlocksPerCta - 1) / kBlocksPerCta;
-  fullloop_kernel<N, T><<<static_cast<unsigned>(ctas), kThreads, 0,
-                          stream>>>(static_cast<const T*>(resid), nblocks,
-                                    fc, fr, gc, gr, spos, qp, metrics, inv);
+__global__ void __launch_bounds__(Cfg<N>::kThreads, kMinCtas)
+fullloop_kernel(const T* __restrict__ resid, long long nblocks, QParams qp,
+                float* __restrict__ metrics, float* __restrict__ inv_out) {
+  using C = Cfg<N>;
+  constexpr int R = C::kRows, S = C::S, NN = N * N;
+  extern __shared__ float4 smem4[];
+  float* mats = reinterpret_cast<float*>(smem4);   // fc, fr, gc, gr
+  int* spos = reinterpret_cast<int*>(mats + C::kMatWords);
+  float* log2q = mats + C::kMatWords + NN;
+  float* tile = log2q + kLog2Levels;               // kBlocks x N x S
+
+  const int tid = threadIdx.x;
+  const int lb = tid / N;                  // block of row group 0
+  const int r = tid % N;                   // its row, then its column
+  const long long b0 = static_cast<long long>(blockIdx.x) * C::kBlocks;
+  const long long base = b0 * NN;
+  const long long total = nblocks * NN;
+
+  // the matrices, the scan positions, then the tile, coalesced: element
+  // e of the tile is (block e / NN, row (e / N) % N, column e % N), at
+  // (e / N) * S + e % N
+  {
+    const float4* src = reinterpret_cast<const float4*>(g_mats + mat_off(N));
+    for (int i = tid; i < C::kMatWords / 4; i += C::kThreads)
+      smem4[i] = src[i];
+    for (int i = tid; i < NN; i += C::kThreads)
+      spos[i] = g_spos[spos_off(N) + i];
+    for (int i = tid; i < kLog2Levels; i += C::kThreads)
+      log2q[i] = g_log2q[i];
+  }
+#pragma unroll
+  for (int it = 0; it < R * N; ++it) {
+    const int e = tid + it * C::kThreads;
+    const long long g = base + e;
+    tile[(e / N) * S + e % N] =
+        g < total ? static_cast<float>(resid[g]) : 0.0f;
+  }
+  __syncthreads();
+  float* tb[R];
+#pragma unroll
+  for (int h = 0; h < R; ++h) tb[h] = tile + (lb + h * C::kHalf) * N * S;
+  float v[R][N];
+
+  // forward row pass, in place: t[r][l] = sum_k x[r][k] * fr[l][k]
+#pragma unroll
+  for (int h = 0; h < R; ++h)
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[h][k] = tb[h][r * S + k];
+  pass<N, R>(v, mats + NN, [&](int h, int l, float a) {
+    tb[h][r * S + l] = a;
+  });
+  __syncthreads();
+
+  // forward column pass: c[i][r] = sum_j fc[i][j] * t[j][r], quantized as
+  // it comes; the dequantized level replaces t in the thread's own column
+  // (no other thread reads it in this pass)
+  int nnz[R], eob[R];
+  float slog[R];
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    nnz[h] = eob[h] = 0;
+    slog[h] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[h][j] = tb[h][j * S + r];
+  }
+  {
+    const float num = static_cast<float>(1 << qp.log_scale);
+    const float scale_dc = __fdiv_rn(num, qp.deq_dc);
+    const float scale_ac = __fdiv_rn(num, qp.deq_ac);
+    pass<N, R>(v, mats, [&](int h, int i, float c) {
+      const bool dc = i == 0 && r == 0;
+      const float deq = dc ? qp.deq_dc : qp.deq_ac;
+      const float rnd = dc ? qp.rnd_dc : qp.rnd_ac;
+      const float zbin = dc ? qp.zbin_dc : qp.zbin_ac;
+      const float scale = dc ? scale_dc : scale_ac;
+      const float ac = fabsf(c);
+      int qa = __float2int_rd(__fmul_rn(__fadd_rn(ac, rnd), scale));
+      qa = ac >= zbin ? max(qa, 0) : 0;
+      int dq = (qa * static_cast<int>(deq)) >> qp.log_scale;
+      if (c < 0.0f) dq = -dq;
+      tb[h][i * S + r] = static_cast<float>(dq);
+      // branch-free: a zero level adds log2(1) = 0, which leaves the sum
+      nnz[h] += qa != 0;
+      eob[h] = max(eob[h], qa != 0 ? spos[i * N + r] + 1 : 0);
+      slog[h] = __fadd_rn(
+          slog[h], qa < kLog2Levels ? log2q[qa] : log2_1p(qa));
+    });
+  }
+  __syncthreads();
+
+  // inverse row pass, in place: u[r][l] = sum_k dq[r][k] * gr[l][k]
+#pragma unroll
+  for (int h = 0; h < R; ++h)
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[h][k] = tb[h][r * S + k];
+  pass<N, R>(v, mats + 3 * NN, [&](int h, int l, float a) {
+    tb[h][r * S + l] = a;
+  });
+  __syncthreads();
+
+  // inverse column pass: inv[i][r] = sum_j gc[i][j] * u[j][r], into the
+  // thread's own column
+#pragma unroll
+  for (int h = 0; h < R; ++h)
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[h][j] = tb[h][j * S + r];
+  pass<N, R>(v, mats + 2 * NN, [&](int h, int i, float a) {
+    tb[h][i * S + r] = a;
+  });
+  __syncthreads();
+
+  // dist and sse along the thread's row (x read again, from L2, 16 bytes
+  // at a time), then a butterfly over the block's N lanes
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    const long long gb = b0 + lb + h * C::kHalf;
+    float dist = 0.0f, sse = 0.0f;
+    if (gb < nblocks) {
+      const T* xr = resid + gb * NN + r * N;
+#pragma unroll
+      for (int k = 0; k < N; k += 4) {
+        using V4 = typename Vec4<T>::type;
+        const V4 q = __ldg(reinterpret_cast<const V4*>(xr + k));
+        const float x[4] = {static_cast<float>(q.x), static_cast<float>(q.y),
+                            static_cast<float>(q.z), static_cast<float>(q.w)};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float err = __fsub_rn(x[u], tb[h][r * S + k + u]);
+          dist = __fadd_rn(dist, __fmul_rn(err, err));
+          sse = __fadd_rn(sse, __fmul_rn(x[u], x[u]));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = N / 2; off > 0; off >>= 1) {
+      dist = __fadd_rn(dist, __shfl_xor_sync(0xffffffffu, dist, off));
+      sse = __fadd_rn(sse, __shfl_xor_sync(0xffffffffu, sse, off));
+      slog[h] = __fadd_rn(slog[h], __shfl_xor_sync(0xffffffffu, slog[h], off));
+      nnz[h] += __shfl_xor_sync(0xffffffffu, nnz[h], off);
+      eob[h] = max(eob[h], __shfl_xor_sync(0xffffffffu, eob[h], off));
+    }
+    if (r == 0 && gb < nblocks) {
+      const int rate =
+          kRateNz * nnz[h] +
+          static_cast<int>(__fmul_rn(static_cast<float>(kRateLog2), slog[h])) +
+          kRateZero * max(eob[h] - nnz[h], 0) +
+          static_cast<int>(__fmul_rn(
+              static_cast<float>(kRateEob),
+              log2f(__fadd_rn(1.0f, static_cast<float>(eob[h])))));
+      float4* m = reinterpret_cast<float4*>(metrics + gb * 8);
+      m[0] = make_float4(dist, static_cast<float>(rate),
+                         static_cast<float>(eob[h]), sse);
+      m[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  if (inv_out != nullptr) {
+#pragma unroll
+    for (int it = 0; it < R * N; ++it) {
+      const int e = tid + it * C::kThreads;
+      const long long g = base + e;
+      if (g < total) inv_out[g] = tile[(e / N) * S + e % N];
+    }
+  }
+}
+
+template <int N, typename T>
+int launch(const void* resid, long long nblocks, QParams qp, float* metrics,
+           float* inv, cudaStream_t stream) {
+  using C = Cfg<N>;
+  const auto kernel = fullloop_kernel<N, T>;
+  if (C::kSmemBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long ctas = (nblocks + C::kBlocks - 1) / C::kBlocks;
+  kernel<<<static_cast<unsigned>(ctas), C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const T*>(resid), nblocks, qp, metrics, inv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_n(int n, const void* resid, long long nblocks, const float* fc,
-             const float* fr, const float* gc, const float* gr,
-             const int* spos, QParams qp, float* metrics, float* inv,
-             cudaStream_t stream) {
+int launch_n(int n, const void* resid, long long nblocks, QParams qp,
+             float* metrics, float* inv, cudaStream_t stream) {
   switch (n) {
-    case 4: launch<4, T>(resid, nblocks, fc, fr, gc, gr, spos, qp, metrics, inv, stream); break;
-    case 8: launch<8, T>(resid, nblocks, fc, fr, gc, gr, spos, qp, metrics, inv, stream); break;
-    case 16: launch<16, T>(resid, nblocks, fc, fr, gc, gr, spos, qp, metrics, inv, stream); break;
-    case 32: launch<32, T>(resid, nblocks, fc, fr, gc, gr, spos, qp, metrics, inv, stream); break;
+    case 4: return launch<4, T>(resid, nblocks, qp, metrics, inv, stream);
+    case 8: return launch<8, T>(resid, nblocks, qp, metrics, inv, stream);
+    case 16: return launch<16, T>(resid, nblocks, qp, metrics, inv, stream);
+    case 32: return launch<32, T>(resid, nblocks, qp, metrics, inv, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Writes the transform matrices and the scan positions of size n, and the
+// table of log2(1 + q), into the current device's memory. fc/fr are the (n, n) forward, gc/gr the (n, n)
+// inverse matrices, spos (n*n,) int32, all in host memory. Call once per
+// device and n before the first launch at n; returns the cudaError_t of
+// the copies (it synchronises the device).
+extern "C" int svt_fullloop_set_constants(int n, const float* fc,
+                                          const float* fr, const float* gc,
+                                          const float* gr, const int* spos) {
+  if (n != 4 && n != 8 && n != 16 && n != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t nn = static_cast<size_t>(n) * n, bytes = nn * sizeof(float);
+  const size_t off = mat_off(n) * sizeof(float);
+  const float* mats[4] = {fc, fr, gc, gr};
+  for (int m = 0; m < 4; ++m) {
+    const cudaError_t err = cudaMemcpyToSymbol(g_mats, mats[m], bytes,
+                                               off + m * bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = cudaMemcpyToSymbol(g_spos, spos, nn * sizeof(int),
+                                       spos_off(n) * sizeof(int));
+  if (err == cudaSuccess) {
+    fill_log2q<<<1, kLog2Levels>>>();
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return static_cast<int>(err);
+}
+
 // C entry point, bound with ctypes. resid is int32 (resid_is_float = 0) or
-// float32 (B, n, n), contiguous; fc/fr are (n, n) forward, gc/gr (n, n)
-// inverse matrices and spos (n*n,) int32, all on the device; inv may be
-// null. Launches on `stream` and returns the cudaError_t of the launch.
+// float32 (B, n, n), contiguous, on the device; inv may be null. The
+// constants of n must have been set. Launches on `stream` and returns the
+// cudaError_t of the launch.
 extern "C" int svt_fullloop_launch(
     const void* resid, int resid_is_float, long long nblocks, int n,
-    const float* fc, const float* fr, const float* gc, const float* gr,
-    const int* spos, float deq_dc, float deq_ac, float rnd_dc, float rnd_ac,
-    float zbin_dc, float zbin_ac, int log_scale, float* metrics, float* inv,
-    void* stream) {
+    float deq_dc, float deq_ac, float rnd_dc, float rnd_ac, float zbin_dc,
+    float zbin_ac, int log_scale, float* metrics, float* inv, void* stream) {
   if (nblocks <= 0) return 0;
   const QParams qp{deq_dc, deq_ac, rnd_dc, rnd_ac, zbin_dc, zbin_ac, log_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return resid_is_float
-             ? launch_n<float>(n, resid, nblocks, fc, fr, gc, gr, spos, qp, metrics, inv, s)
-             : launch_n<int>(n, resid, nblocks, fc, fr, gc, gr, spos, qp, metrics, inv, s);
+             ? launch_n<float>(n, resid, nblocks, qp, metrics, inv, s)
+             : launch_n<int>(n, resid, nblocks, qp, metrics, inv, s);
 }
 
 extern "C" const char* svt_cuda_error_string(int err) {

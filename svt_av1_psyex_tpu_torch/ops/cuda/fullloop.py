@@ -6,15 +6,20 @@ launches the kernel or raises; on a CPU tensor it runs the plain PyTorch
 version (ops/fullloop_ref.py), because there is no kernel there.
 `launches` counts the kernel launches, so that a run can show that its
 main path went through the kernel.
+
+The kernel reads its transform matrices from constant memory: they are
+written once per device and size, at the first launch there, from the
+same float32 tables the plain version uses (params.reference_numpy).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from ...params import reference_constants
+from ...params import reference_numpy
 from ..fullloop_ref import fullloop_ref
 from . import build
 
@@ -23,6 +28,7 @@ SIZES = (4, 8, 16, 32)
 launches = 0
 
 _bound = None
+_ready: set = set()   # (device index, n) whose constants are written
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,13 +37,30 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("fullloop")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.svt_fullloop_launch.argtypes = (
-            [vp, i, ctypes.c_longlong, i] + [vp] * 5 + [f] * 6
-            + [i, vp, vp, vp])
+            [vp, i, ctypes.c_longlong, i] + [f] * 6 + [i, vp, vp, vp])
         lib.svt_fullloop_launch.restype = i
+        lib.svt_fullloop_set_constants.argtypes = [i] + [vp] * 5
+        lib.svt_fullloop_set_constants.restype = i
         lib.svt_cuda_error_string.argtypes = [i]
         lib.svt_cuda_error_string.restype = ctypes.c_char_p
         _bound = lib
     return _bound
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"fullloop kernel {what} failed: "
+                           + lib.svt_cuda_error_string(err).decode())
+
+
+def _set_constants(lib, dev: torch.device, n: int) -> None:
+    ref = reference_numpy()
+    arrs = [np.ascontiguousarray(a) for a in
+            (*ref["fwd_mats"][n], *ref["inv_mats"][n], ref["scan_pos"][n])]
+    with torch.cuda.device(dev):
+        _check(lib, lib.svt_fullloop_set_constants(
+            n, *(a.ctypes.data for a in arrs)), "constant upload")
+    _ready.add((dev.index, n))
 
 
 def fullloop(resid: torch.Tensor, qp6, n: int, log_scale: int,
@@ -71,20 +94,15 @@ def fullloop(resid: torch.Tensor, qp6, n: int, log_scale: int,
            if want_inv else None)
     if b == 0:
         return metrics, inv
-    consts = reference_constants(dev)
-    fc, fr = consts["fwd_mats"][n]
-    gc, gr = consts["inv_mats"][n]
-    spos = consts["scan_pos"][n]
     lib = _lib()
+    if (dev.index, n) not in _ready:
+        _set_constants(lib, dev, n)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.svt_fullloop_launch(
-            resid.data_ptr(), int(resid.dtype == torch.float32), b, n,
-            fc.data_ptr(), fr.data_ptr(), gc.data_ptr(), gr.data_ptr(),
-            spos.data_ptr(), *qp, int(log_scale), metrics.data_ptr(),
-            inv.data_ptr() if want_inv else None, stream)
-    if err != 0:
-        raise RuntimeError("fullloop kernel launch failed: "
-                           + lib.svt_cuda_error_string(err).decode())
+            resid.data_ptr(), int(resid.dtype == torch.float32), b, n, *qp,
+            int(log_scale), metrics.data_ptr(),
+            inv.data_ptr() if want_inv else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, err, "launch")
     launches += 1
     return metrics, inv

@@ -1,9 +1,10 @@
 """The encoder's device state: its constant tables.
 
 The encoder has no learned weights. What lives on the device besides
-the frames is a handful of constant tables, built here from the JAX
-package's numpy sources so that both packages compute from identical
-inputs:
+the frames is a handful of constant tables, built here from the numpy
+sources of the host tier (bitstream/tables.py, ops/txfm.py through
+device/matdct.py), which are the JAX package's, so that both packages
+compute from identical inputs:
 
 * fwd_mats / inv_mats: the probed DCT matrices (device/matdct.py) for
   n in {4, 8, 16, 32, 64};
@@ -23,9 +24,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from svt_av1_psyex_tpu.bitstream.tables import get as table_get
-from svt_av1_psyex_tpu.bitstream.tables import scan_table
-
+from .bitstream.tables import get as table_get
+from .bitstream.tables import scan_table
 from .device.matdct import fwd_mats, inv_mats
 
 TRANSFORM_SIZES = (4, 8, 16, 32, 64)
@@ -53,7 +53,7 @@ def had8() -> np.ndarray:
 
 
 def reference_numpy() -> dict:
-    """The constant tables as the JAX package's numpy arrays."""
+    """The constant tables as numpy arrays."""
     sm = table_get("sm_weight_arrays")
     return {
         "fwd_mats": {n: fwd_mats(n) for n in TRANSFORM_SIZES},

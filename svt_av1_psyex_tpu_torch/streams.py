@@ -1,11 +1,9 @@
 """Clip and stream I/O for programs that drive the port.
 
 The clip format (y4m VideoFormat), the IVF container and the dav1d
-conformance decoder are the JAX package's jax-free host modules; they
-are re-exported here so that a program imports the port alone. The one
-helper of its own is the conformance check every port encode shares:
-decode the stream with dav1d and hold each frame against the encoder's
-reconstruction.
+conformance decoder (utils/, conformance/) are re-exported here, beside
+the conformance check every port encode shares: decode the stream with
+dav1d and hold each frame against the encoder's reconstruction.
 """
 
 from __future__ import annotations
@@ -15,9 +13,9 @@ from pathlib import Path
 
 import numpy as np
 
-from svt_av1_psyex_tpu.conformance.dav1d import decode_ivf
-from svt_av1_psyex_tpu.utils.ivf import IvfWriter
-from svt_av1_psyex_tpu.utils.y4m import VideoFormat
+from .conformance.dav1d import decode_ivf
+from .utils.ivf import IvfWriter
+from .utils.y4m import VideoFormat
 
 __all__ = ["IvfWriter", "VideoFormat", "decode_ivf", "dav1d_loads",
            "write_ivf", "dav1d_mismatches"]

@@ -199,8 +199,9 @@ def test_handle_wrappers_and_device_required():
         svt_av1_get_version,
     )
 
-    with pytest.raises(TypeError):
-        SvtAv1Encoder()
+    if not torch.cuda.is_available():   # the default device is "cuda"
+        with pytest.raises(RuntimeError, match="cuda"):
+            SvtAv1Encoder()
     handle, cfg = svt_av1_enc_init_handle(device="cpu")
     assert isinstance(handle, SvtAv1Encoder) and cfg is handle.config
     assert handle.device.type == "cpu" and handle.kernels == "hand"

@@ -74,6 +74,35 @@ def test_plain_without_inverse_and_empty_batch():
     assert m0.shape == (0, 8)
 
 
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_plain_is_deterministic(n):
+    """One answer per input: 50 calls of the plain fullloop on one input,
+    copied to buffers at different offsets, under 1, 2 and 6 torch
+    threads, with and without the inverse, all torch.equal."""
+    resid = torch.from_numpy(resid_blocks(n, b=48))
+    ls = log_scale(n)
+    qp6 = qp6_for(qp_row_for(140, 0, 0, 8), ls)
+    threads = torch.get_num_threads()
+    want_m = want_inv = None
+    try:
+        for i in range(50):
+            torch.set_num_threads((1, 2, 6)[i % 3])
+            off = i % 7
+            buf = torch.empty(resid.numel() + off, dtype=torch.int32)
+            x = buf[off:].view(resid.shape)
+            x.copy_(resid)
+            m, inv = fullloop_ref(x, qp6, n, ls, want_inv=i % 2 == 1)
+            if want_m is None:
+                want_m = m
+            assert torch.equal(m, want_m), (i, off)
+            if inv is not None:
+                if want_inv is None:
+                    want_inv = inv
+                assert torch.equal(inv, want_inv), (i, off)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_wrapper_on_cpu_runs_plain_version():
     """On a CPU tensor the kernel wrapper runs the plain version and
     launches (and counts) nothing."""

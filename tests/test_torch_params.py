@@ -79,11 +79,10 @@ def test_rd_row_and_costs_equal(psy_rd):
     imports the device tier) derives the same RD state for a frame."""
     from mkclip import synth_frame
 
-    from svt_av1_psyex_tpu.bitstream.headers import SequenceConfig
     from svt_av1_psyex_tpu.codec.md_device import DeviceIntraMD as JaxMD
     from svt_av1_psyex_tpu.utils.y4m import VideoFormat
 
-    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
     w, h = 200, 120
     frame = synth_frame(VideoFormat(w, h, fps=Fraction(30, 1)), 0, "blobs")

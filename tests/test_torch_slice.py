@@ -55,6 +55,7 @@ def _frames(w=W, h=H, n=N):
 @pytest.fixture(scope="module")
 def encodes():
     from svt_av1_psyex_tpu.codec.encoder import Av1Encoder as JaxEncoder
+    from svt_av1_psyex_tpu.codec.encoder import SequenceConfig as JaxSeq
 
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
@@ -62,7 +63,7 @@ def encodes():
     port = Av1Encoder(SequenceConfig(width=W, height=H), preset=PRESET,
                       device="cpu")
     port_tus = port.encode_keyframes(frames, QINDEX)
-    ref = JaxEncoder(SequenceConfig(width=W, height=H), preset=PRESET)
+    ref = JaxEncoder(JaxSeq(width=W, height=H), preset=PRESET)
     ref_tus = ref.encode_keyframes(frames, QINDEX)
     return port, port_tus, ref, ref_tus
 
@@ -111,11 +112,16 @@ def encode_gop(enc_cls, preset=GOP_PRESET, **kwargs):
     """KF + one 4-frame RA mini-GOP (plan_minigop(0, 1, 4, future_slot=1))
     of the 200x120 "blobs" clip, driven as the JAX package's API drives it
     (codec.encoder.encode_plans). Returns (encoder, TUs, display-order
-    recons); enc.dmds holds the device MDs of the coded frames."""
-    from svt_av1_psyex_tpu.codec.gop import plan_minigop
+    recons); enc.dmds holds the device MDs of the coded frames. Each
+    package's encoder gets its own package's SequenceConfig and plans."""
+    import importlib
 
-    from svt_av1_psyex_tpu_torch.codec.encoder import (
-        SequenceConfig, encode_plans)
+    from svt_av1_psyex_tpu_torch.codec.encoder import encode_plans
+
+    pkg = enc_cls.__module__.split(".")[0]
+    SequenceConfig = importlib.import_module(
+        f"{pkg}.bitstream.headers").SequenceConfig
+    plan_minigop = importlib.import_module(f"{pkg}.codec.gop").plan_minigop
 
     class Recording(enc_cls):
         def _begin_frame_impl(self, *a, **k):
@@ -244,9 +250,9 @@ def test_port_encode_imports_no_jax():
         sys.path.insert(0, {str(ROOT / 'tools')!r})
         from fractions import Fraction
         from mkclip import synth_frame
-        from svt_av1_psyex_tpu.codec.gop import plan_minigop
         from svt_av1_psyex_tpu_torch.codec.encoder import (
             Av1Encoder, SequenceConfig, encode_plans)
+        from svt_av1_psyex_tpu_torch.codec.gop import plan_minigop
         from svt_av1_psyex_tpu_torch.streams import VideoFormat
         fmt = VideoFormat(128, 64, fps=Fraction(30, 1))
         frames = [synth_frame(fmt, t) for t in range(2)]

@@ -20,8 +20,10 @@ order; any failure raises and the script exits non-zero without a result:
    the 1080p encode of phase 6, whose 16 frames fold into one batch; the
    inter candidates of phase 5, one 720p frame per launch; TPL's float32
    closed-loop residual of one 720p frame, n = 16, B = 3840: TPL pads 720
-   rows to 768) and, for
-   n = 4, which those paths do not reach, at one 1080p frame's batch.
+   rows to 768), at one 1080p 10-bit frame's lattice batch for n = 16 and
+   32 (config 3's qindex, residual amplitudes four times the 8-bit ones)
+   and, for n = 4, which those paths do not reach, at one 1080p frame's
+   batch.
    sad_lattice bit-exact, with 8-bit and 10-bit samples, at an off-tile
    batch and at one 720p (240 superblocks) and one 1080p (510) frame.
 4. slice: the config-1 clip (the "blobs" clip of tools/mkclip.py, made by
@@ -67,9 +69,34 @@ order; any failure raises and the script exits non-zero without a result:
    (build/chip_smoke/config2.y4m): its IVF must equal the warm-up's API
    packets. fps, stage seconds, the per-frame qindex of both runs,
    bytes.
+8. config 3: BASELINE.json config 3, "blobs" 1920x1080 10-bit, through
+   the port's SvtAv1Encoder at preset 6, CRF 30, everything else at its
+   default (random access, keyframe and ARF TF, TPL, psy-rd 1.0,
+   variance boost, CDEF, loop restoration), cut to a keyframe and one
+   mini-GOP (9 frames). A 2-frame warm-up (which keeps the keyframe's
+   three loop-restoration stacks), a timed run with the kernels (the
+   main path of this phase, counts set to 0 before it and read after
+   it) and one with kernels="plain", under SVT_TPU_TIMING=1; the TUs
+   must agree as in phase 7. fps, stage seconds (lr_build, lr_up,
+   lr_wd, lr_sg, lr_exact, cdef among them), the per-frame qindex, the
+   loop-restoration frame types per frame and plane, launches, bytes.
+   Then the LR search's device tier alone on the warm-up keyframe's
+   three planes, on the card and on the CPU: taps, best SSE and
+   correlations bit-identical; the card's times. Where dav1d loads, the
+   keyframe must decode to its recon; the inter frames that do not are
+   printed (10-bit p6 inter frames inherit a mismatch from the
+   reference, ROADMAP.md section 3).
+9. device CDEF: phase 6's 1080p keyframe group (cdef_group_device) and
+   phase 5's 720p keyframe + mini-GOP (the per-frame entry) again with
+   SVT_TPU_DEVICE_CDEF=1. On one frame of each, the directions and
+   variances (on the card) equal ops/cdef.py find_dir_batch's and the
+   filtered coded area equals ops/cdef.py filter_blocks for the chosen
+   strengths; the number of TUs that differ from the native C run of
+   the same phase, and both runs' "cdef" stage seconds.
 
-Then a JSON line of the kernels ("launches": the count of phase 7's
-kernel run; fullloop "ms"/"plain_ms": its device time summed
+Then a JSON line of the kernels ("launches": the counts of phases 7 and
+8's kernel runs summed, "launches_by_path" each of them; fullloop
+"ms"/"plain_ms": its device time summed
 over its launches in one 1080p 16-frame analysis, "bound_ms" the sum of
 those launches' bounds, "max_abs_err": the largest |inverse residual|
 difference against the plain version over every compared block; sad
@@ -93,6 +120,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from fractions import Fraction
 from pathlib import Path
 
@@ -108,6 +136,11 @@ INTER = dict(w=1280, h=720, frames=17, gop=16, warmup_gop=2, preset=8,
 # frames; TPL is held on the card on its first 24, the CLI runs its first 9
 CONFIG2 = dict(w=1280, h=720, frames=48, preset=8, crf=30, tpl_frames=24,
                cli_frames=9)
+# config 3 (1080p 10-bit, p6, CRF 30; TF, TPL, psy-rd, variance boost,
+# CDEF and loop restoration on at their defaults) through the port's API,
+# cut to a keyframe and one mini-GOP; a 2-frame warm-up first
+CONFIG3 = dict(w=1920, h=1080, bd=10, frames=9, preset=6, crf=30,
+               warmup_frames=2)
 KERNELS = ("fullloop", "sad")
 REPLACES = {"fullloop": "svt_av1_psyex_tpu/ops/pallas/fullloop.py:151",
             "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69"}
@@ -155,18 +188,20 @@ def lattice_batch(cfg: dict, n: int, frames: int) -> int:
     return 7 * blocks(cfg, n) * frames
 
 
-def residuals(b: int, n: int, seed: int, device, f32: bool = False):
+def residuals(b: int, n: int, seed: int, device, f32: bool = False,
+              scale: int = 1):
     """Intra-like residual blocks on the card (tests/test_pallas.py's
-    amplitudes); block 0 is all zero, whose eob must be 0. With f32, the
-    float32 residuals of a prediction from an unrounded float recon (TPL's
-    recrf): the same amplitudes plus a fraction in [-0.5, 0.5)."""
+    amplitudes, times `scale`: 4 for 10-bit samples); block 0 is all
+    zero, whose eob must be 0. With f32, the float32 residuals of a
+    prediction from an unrounded float recon (TPL's recrf): the same
+    amplitudes plus a fraction in [-0.5, 0.5)."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     resid = (torch.randint(-64, 65, (b, n, n), generator=g, device=device,
                            dtype=torch.int32)
              + torch.randint(-2, 3, (b, n, n), generator=g, device=device,
-                             dtype=torch.int32) * 40)
+                             dtype=torch.int32) * 40) * scale
     if f32:
         resid = resid.to(torch.float32) + torch.rand(
             (b, n, n), generator=g, device=device) - 0.5
@@ -238,12 +273,13 @@ def phase_kernels(device) -> dict:
     from svt_av1_psyex_tpu_torch.ops.fullloop_ref import fullloop_ref
 
     qp_row = qp_row_for(CONFIG1["qindex"], 0, 0, 8)
+    # config 3's 10-bit residuals at its CRF's qindex
+    qp_row10 = qp_row_for(CONFIG3["crf"] * 4, 0, 0, 10)
     worst = 0.0
     hd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
           "ops_ms": 0.0}
     for n in (4, 8, 16, 32):
         ls = 1 if n == 32 else 0
-        qp6 = qp6_for(qp_row, ls)
         cases = [("off-tile", 150)]
         if n == 4:
             cases.append(("1080p-1-frame", lattice_batch(HD, n, 1)))
@@ -259,8 +295,14 @@ def phase_kernels(device) -> dict:
         if n == 32:
             cases.append(("config-1", lattice_batch(CONFIG1, n,
                                                     CONFIG1["frames"])))
+        if n in (16, 32):
+            # one 1080p 10-bit frame's intra lattice (config 3)
+            cases.append(("1080p-10bit-1-frame", lattice_batch(HD, n, 1)))
         for label, b in cases:
-            resid = residuals(b, n, 7 + n, device, f32=label.endswith("f32"))
+            ten = "10bit" in label
+            qp6 = qp6_for(qp_row10 if ten else qp_row, ls)
+            resid = residuals(b, n, 7 + n, device, f32=label.endswith("f32"),
+                              scale=4 if ten else 1)
             mk, ik = fullloop(resid, qp6, n, ls, want_inv=True)
             mp, ip = fullloop_ref(resid, qp6, n, ls, want_inv=True)
             mk0, none = fullloop(resid, qp6, n, ls, want_inv=False)
@@ -362,7 +404,8 @@ def make_frames(cfg: dict) -> list:
     from svt_av1_psyex_tpu_torch.streams import VideoFormat
     from svt_av1_psyex_tpu_torch.utils.clips import synth_frame
 
-    fmt = VideoFormat(cfg["w"], cfg["h"], fps=Fraction(30, 1))
+    fmt = VideoFormat(cfg["w"], cfg["h"], cfg.get("bd", 8),
+                      fps=Fraction(30, 1))
     return [synth_frame(fmt, t) for t in range(cfg["frames"])]
 
 
@@ -504,8 +547,8 @@ def decision_agreement(dk, dp) -> dict:
 
 def phase_inter(device) -> dict:
     """Phase 5: config 2's shape without TF and TPL through the port,
-    kernels vs plain. Returns the kernel run's launch counts (the main
-    path of this slice)."""
+    kernels vs plain. Returns the clip, the kernel run's TUs and its
+    "cdef" stage seconds (the native C backend), for phase 9."""
     from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
     from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
 
@@ -553,12 +596,14 @@ def phase_inter(device) -> dict:
           f"{cfg['frames'] / dt_p:.3f} fps ({dt_p:.3f} s; {timing(enc_p)}); "
           f"{len(diff)} of {len(tus_k)} TUs differ; {gate}; launches "
           f"{launches}; {sum(map(len, tus_k))} bytes", flush=True)
-    return launches
+    return {"frames": frames, "tus": tus_k,
+            "cdef_s": enc_k.timing.get("cdef", 0.0)}
 
 
-def phase_hd(device) -> None:
+def phase_hd(device) -> dict:
     """Phase 6: 1080p all-intra, warm-up then a timed encode; then the
-    device analysis alone, kernels vs plain."""
+    device analysis alone, kernels vs plain. Returns the clip, the TUs
+    and the "cdef" stage seconds (the native C backend), for phase 9."""
     from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
 
     frames = make_frames(HD)
@@ -590,13 +635,15 @@ def phase_hd(device) -> None:
           f"{analysis['hand']}, plain {analysis['plain']}; depths "
           f"{enc.keyframe_depths()}; fullloop launches {launches}; "
           f"{sum(map(len, tus))} bytes; {gate}", flush=True)
+    return {"frames": frames, "tus": tus, "cdef_s": enc.stage_seconds["cdef"]}
 
 
 def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
-    """The port's SvtAv1Encoder at config 2's settings (everything else
-    at its default, so keyframe TF, ARF TF and TPL are on; the clip's 30
-    fps), recording per packet the coded frame's (qindex, device MD), or
-    None for a show-existing packet, and the r0 of every TPL group."""
+    """The port's SvtAv1Encoder at cfg's size, bit depth, preset and CRF
+    (everything else at its default, so keyframe TF, ARF TF and TPL are
+    on; the clip's 30 fps), recording per packet the coded frame's
+    (qindex, device MD, loop-restoration frame types), or None for a
+    show-existing packet, and the r0 of every TPL group."""
     from svt_av1_psyex_tpu_torch.api.encoder import SvtAv1Encoder
 
     class Recording(SvtAv1Encoder):
@@ -614,7 +661,8 @@ def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
 
             def resume_frame(st):
                 tu = resume(st)
-                self._last = (st["fr"].base_q_idx, st["dmd"])
+                self._last = (st["fr"].base_q_idx, st["dmd"],
+                              st["fr"].lr_frame_types)
                 return tu
 
             enc.begin_frame, enc.resume_frame = begin_frame, resume_frame
@@ -631,12 +679,14 @@ def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
     api = Recording(device=device, kernels=kernels)
     c = api.config
     c.source_width, c.source_height = cfg["w"], cfg["h"]
+    c.encoder_bit_depth = cfg.get("bd", 8)
     c.enc_mode, c.crf = cfg["preset"], cfg["crf"]
     c.frame_rate_numerator, c.frame_rate_denominator = 30, 1
     c.recon_enabled = recon
     api.init()
     check(c.enable_tf and c.kf_tf_strength > 0 and api._tpl_on(),
-          "config 2: TF, keyframe TF and TPL must be on at the defaults")
+          f"p{cfg['preset']}: TF, keyframe TF and TPL must be on at the "
+          "defaults")
     return api
 
 
@@ -737,6 +787,33 @@ def cli_vs_api(frames: list, cfg: dict, device, api_pkts: list) -> str:
             f"{len(got)} packets ({dt:.3f} s for the subprocess)")
 
 
+def kernel_vs_plain(tag: str, api_k, pk: list, api_p, pp: list):
+    """The packets of a kernel run (api_k, pk) and a plain run (api_p,
+    pp) must agree byte for byte; a differing TU must have the same
+    qindex in both runs (else both runs' TPL r0 are printed and the phase
+    fails) and >= 0.98 decision agreement per depth. Returns the
+    per-frame (pts, qindex) of both runs and the differing TUs."""
+    qk = [(p.pts, c[0]) for p, c in zip(pk, api_k.coded) if c is not None]
+    qp_ = [(p.pts, c[0]) for p, c in zip(pp, api_p.coded) if c is not None]
+    diff = [i for i, (a, b) in enumerate(zip(pk, pp)) if a.data != b.data]
+    for i in diff:
+        ck, cp = api_k.coded[i], api_p.coded[i]
+        check(ck is not None and cp is not None,
+              f"{tag}: show-existing TU {i} differs")
+        if ck[0] != cp[0]:
+            print(f"{tag}: TU {i} (pts {pk[i].pts}) qindex {ck[0]} with "
+                  f"the kernels, {cp[0]} plain; TPL r0 with the kernels "
+                  f"{api_k.r0s}, plain {api_p.r0s}", flush=True)
+            check(False, f"{tag}: TU {i} qindex differs")
+        agree = decision_agreement(ck[1], cp[1])
+        print(f"{tag}: TU {i} (pts {pk[i].pts}, qindex {ck[0]}) differs "
+              f"between kernel and plain runs; decision agreement per "
+              f"depth {agree}", flush=True)
+        check(min(agree.values()) >= 0.98,
+              f"{tag}: TU {i} decision agreement below 0.98")
+    return qk, qp_, diff
+
+
 def phase_config2(device) -> dict:
     """Phase 7: config 2 through the port's SvtAv1Encoder, kernels vs
     plain; TPL on the card; the CLI. Returns the kernel run's launch
@@ -769,24 +846,7 @@ def phase_config2(device) -> dict:
           "both runs, and a recon per frame")
     check("tf" in api_k._enc.timing and "tpl" in api_k._enc.timing,
           "config 2: tf and tpl missing from the stage seconds")
-    qk = [(p.pts, c[0]) for p, c in zip(pk, api_k.coded) if c is not None]
-    qp_ = [(p.pts, c[0]) for p, c in zip(pp, api_p.coded) if c is not None]
-    diff = [i for i, (a, b) in enumerate(zip(pk, pp)) if a.data != b.data]
-    for i in diff:
-        ck, cp = api_k.coded[i], api_p.coded[i]
-        check(ck is not None and cp is not None,
-              f"config 2: show-existing TU {i} differs")
-        if ck[0] != cp[0]:
-            print(f"config 2: TU {i} (pts {pk[i].pts}) qindex {ck[0]} with "
-                  f"the kernels, {cp[0]} plain; TPL r0 with the kernels "
-                  f"{api_k.r0s}, plain {api_p.r0s}", flush=True)
-            check(False, f"config 2: TU {i} qindex differs")
-        agree = decision_agreement(ck[1], cp[1])
-        print(f"config 2: TU {i} (pts {pk[i].pts}, qindex {ck[0]}) differs "
-              f"between kernel and plain runs; decision agreement per "
-              f"depth {agree}", flush=True)
-        check(min(agree.values()) >= 0.98,
-              f"config 2: TU {i} decision agreement below 0.98")
+    qk, qp_, diff = kernel_vs_plain("config 2", api_k, pk, api_p, pp)
     gate = dav1d_check("config2", None, [p.data for p in pk], cfg,
                        recons=rec_k)
     tpl = tpl_on_card(frames, cfg, device)
@@ -807,6 +867,275 @@ def phase_config2(device) -> dict:
     print(f"config 2: {tpl}", flush=True)
     print(f"config 2: {cli}", flush=True)
     return launches
+
+
+@contextmanager
+def recording_lr_stacks(out: list, n: int = 3):
+    """Keeps the arguments of the next `n` calls of the LR search's
+    device tier (codec.restoration._device_search: one coded frame's Y,
+    U and V stacks) in `out`."""
+    import svt_av1_psyex_tpu_torch.codec.restoration as CR
+
+    orig = CR._device_search
+
+    def record(*args, **kwargs):
+        if len(out) < n:
+            out.append(args[:8])
+        return orig(*args, **kwargs)
+
+    CR._device_search = record
+    try:
+        yield
+    finally:
+        CR._device_search = orig
+
+
+def lr_alone(stacks: list, device) -> str:
+    """The LR search's device tier alone on one frame's three planes: on
+    the card and on the CPU, taps, best SSE and correlations equal bit
+    for bit; the card's time of each program and of the whole call."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psyex_tpu_torch.codec.restoration import _device_search
+    from svt_av1_psyex_tpu_torch.device.restoration import (
+        sgr_corr,
+        wiener_descent,
+    )
+
+    words = []
+    for plane, args in zip("YUV", stacks):
+        pads, srcs, masks, init, bd, n_rounds, chroma, eps = args
+        t0 = time.perf_counter()
+        card = _device_search(*args, device)
+        t1 = time.perf_counter()
+        host = _device_search(*args, torch.device("cpu"))
+        t2 = time.perf_counter()
+        for name, a, b in zip(("taps", "best SSE", "correlations"), card,
+                              host):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"config 3 LR search, plane {plane}: {name} differ "
+                  "between the card and the CPU")
+        up = [torch.from_numpy(a).to(device) for a in (pads, srcs, masks)]
+        it = torch.from_numpy(init).to(device)
+        wd = cuda_ms(lambda: wiener_descent(*up, it, bd, n_rounds, chroma),
+                     reps=3)
+        sg = cuda_ms(lambda: sgr_corr(*up, eps, bd), reps=3)
+        words.append(
+            f"{plane} ({pads.shape[0]} RUs padded to {pads.shape[1] - 6}x"
+            f"{pads.shape[2] - 6}, {init.shape[1]} initial tap sets, "
+            f"{n_rounds} rounds, {len(eps)} eps): wiener_descent {wd:.3f} "
+            f"ms + sgr_corr {sg:.3f} ms on the card (CUDA events), the "
+            f"whole call {(t1 - t0) * 1e3:.3f} ms with upload and fetch; "
+            f"CPU {(t2 - t1) * 1e3:.1f} ms")
+    return "; ".join(words)
+
+
+def phase_config3(device) -> dict:
+    """Phase 8: config 3 through the port's SvtAv1Encoder, kernels vs
+    plain; the LR search alone, card vs CPU; dav1d on the keyframe.
+    Returns the kernel run's launch counts (the main path of this
+    phase)."""
+    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
+    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
+    from svt_av1_psyex_tpu_torch.streams import dav1d_loads, dav1d_mismatches
+
+    cfg = CONFIG3
+    frames = make_frames(cfg)
+    stacks: list = []
+    with recording_lr_stacks(stacks):   # the warm-up keyframe's planes
+        api_encode(frames[:cfg["warmup_frames"]], cfg, device, "hand")
+    check(len(stacks) == 3, "config 3: the warm-up ran no LR search")
+    os.environ["SVT_TPU_TIMING"] = "1"  # stage clock, LR's sub-stages
+    try:
+        cuda_fullloop.launches = cuda_sad.launches = 0
+        api_k, pk, rec_k, dt_k = api_encode(frames, cfg, device, "hand",
+                                            recon=True)
+        launches = {"fullloop": cuda_fullloop.launches,
+                    "sad": cuda_sad.launches}
+        api_p, pp, _, dt_p = api_encode(frames, cfg, device, "plain")
+    finally:
+        del os.environ["SVT_TPU_TIMING"]
+    for name, n in launches.items():
+        check(n > 0, f"config 3: the main path launched no {name} kernel")
+    enc = api_k._enc
+    check(enc.seq.enable_restoration and enc.seq.enable_cdef
+          and enc.psy_rd > 0 and enc.enable_variance_boost
+          and enc.seq.bit_depth == 10,
+          "config 3: 10-bit with LR, CDEF, psy-rd and variance boost on "
+          "at the defaults")
+    check(len(rec_k) == cfg["frames"] and len(pk) == len(pp)
+          and all(len(p.data) > 0 for p in pk),
+          "config 3: expected a non-empty packet per TU, the same count in "
+          "both runs, and a recon per frame")
+    stage = {k: round(v, 4) for k, v in enc.timing.items()}
+    for key in ("tf", "tpl", "cdef", "lr_build", "lr_up", "lr_wd", "lr_sg",
+                "lr_exact"):
+        check(key in stage, f"config 3: {key} missing from the stage "
+              "seconds")
+    qk, qp_, diff = kernel_vs_plain("config 3", api_k, pk, api_p, pp)
+    lr_types = [(p.pts, c[2]) for p, c in zip(pk, api_k.coded)
+                if c is not None]
+    check(any(any(t) for _, t in lr_types),
+          "config 3: loop restoration chose no filter on any frame")
+    if dav1d_loads():
+        bad = dav1d_mismatches(OUT_DIR / "config3.ivf",
+                               [p.data for p in pk], rec_k, cfg["w"],
+                               cfg["h"])
+        # 10-bit p6 inter frames may mismatch: inherited from the
+        # reference (ROADMAP.md section 3); the keyframe must not
+        check(0 not in bad, "config 3: dav1d output differs from the "
+              "keyframe's recon")
+        gate = (f"dav1d: keyframe bit-exact, frames differing from the "
+                f"recon {bad}")
+    else:
+        gate = "not decoded (dav1d absent)"
+    alone = lr_alone(stacks, device)
+    print(f"config 3: {cfg['w']}x{cfg['h']} 10-bit, {cfg['frames']} frames "
+          f"(a keyframe + one mini-GOP), p{cfg['preset']}, CRF "
+          f"{cfg['crf']}, TF + TPL + psy-rd + variance boost + CDEF + LR "
+          f"on, through SvtAv1Encoder ({len(pk)} TUs): kernels "
+          f"{cfg['frames'] / dt_k:.4f} fps ({dt_k:.3f} s; stage seconds "
+          f"{stage}), plain {cfg['frames'] / dt_p:.4f} fps ({dt_p:.3f} s; "
+          f"{ {k: round(v, 4) for k, v in api_p._enc.timing.items()} }); "
+          f"qindex per coded frame (pts, q): kernels {qk}, plain {qp_}; LR "
+          f"frame types (Y, U, V) per coded frame (pts, types): {lr_types};"
+          f" {len(diff)} of {len(pk)} TUs differ; {gate}; launches "
+          f"{launches}; {sum(len(p.data) for p in pk)} bytes", flush=True)
+    print(f"config 3: LR search alone on the warm-up keyframe, bit-exact "
+          f"card vs CPU: {alone}", flush=True)
+    return launches
+
+
+@contextmanager
+def recording_cdef_frame(out: list):
+    """Keeps, for the first frame the device CDEF backend filters, its
+    job (recon planes copied before the filter), the recon planes after
+    it and its result (device.cdef.cdef_group_device, which the
+    per-frame entry calls too)."""
+    import svt_av1_psyex_tpu_torch.device.cdef as PC
+
+    orig = PC.cdef_group_device
+
+    def record(jobs, *args, **kwargs):
+        before = None
+        if not out:
+            before = dict(jobs[0], recon_planes=[
+                p.copy() for p in jobs[0]["recon_planes"]])
+        res = orig(jobs, *args, **kwargs)
+        if before is not None and res[0] is not None:
+            out.append((before, [p.copy() for p in jobs[0]["recon_planes"]],
+                        res[0]))
+        return res
+
+    PC.cdef_group_device = record
+    try:
+        yield
+    finally:
+        PC.cdef_group_device = orig
+
+
+def check_cdef_frame(tag: str, frame: tuple, bit_depth: int, device) -> str:
+    """One frame of the device CDEF backend: the directions and
+    variances (on the card) equal ops.cdef.find_dir_batch's; the
+    filtered coded area equals ops.cdef.filter_blocks for the strengths
+    the frame chose, with every unfiltered unit unchanged."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psyex_tpu_torch.device.cdef import (
+        _blocked,
+        _find_dir,
+        _prep_frame,
+    )
+    from svt_av1_psyex_tpu_torch.ops.cdef import (
+        adjust_strength,
+        filter_blocks,
+        find_dir_batch,
+    )
+
+    job, after, (_, y_str, uv_str, fb_map, damping) = frame
+    before = job["recon_planes"]
+    mi_rows, mi_cols = job["mi_rows"], job["mi_cols"]
+    pads, _, maskg, (_, nhfb, nv8p, nh8p) = _prep_frame(
+        before, job["src_planes"], job["skip_g"], mi_rows, mi_cols)
+    cs = bit_depth - 8
+    blocks = _blocked(torch.from_numpy(pads[0]).to(device)[2:-2, 2:-2],
+                      nv8p, nh8p, 8)
+    dirs, var = (t.cpu().numpy().astype(np.int64)
+                 for t in _find_dir(blocks, cs))
+    want_d, want_v = find_dir_batch(blocks.cpu().numpy(), cs)
+    check(np.array_equal(dirs, want_d) and np.array_equal(var, want_v),
+          f"{tag}: device CDEF directions/variances differ from "
+          "find_dir_batch")
+    n = nv8p * nh8p
+    b = np.arange(n)
+    fb = fb_map.reshape(-1)[(b // nh8p // 8) * nhfb + (b % nh8p) // 8]
+    ydamp, cdamp = damping + cs, max(0, damping + cs - 1)
+    filtered = 0
+    for k, (strs, bs, damp) in enumerate(((y_str, 8, ydamp),
+                                          (uv_str, 4, cdamp),
+                                          (uv_str, 4, cdamp))):
+        gi = np.where(fb >= 0, np.asarray(strs)[np.maximum(fb, 0)], 0)
+        blk = np.nonzero((maskg.reshape(-1) > 0) & (gi != 0))[0]
+        pri = (gi[blk] // 4) << cs
+        sec = gi[blk] % 4
+        sec = (sec + (sec == 3)) << cs
+        d = np.where(pri != 0, dirs[blk], 0)
+        if k == 0:
+            for p in np.unique(pri):
+                sel = pri == p
+                pri[sel] = adjust_strength(int(p), var[blk[sel]])
+        rows, cols = (blk // nh8p) * bs, (blk % nh8p) * bs
+        out = filter_blocks(pads[k], rows + 2, cols + 2, bs, bs, pri, sec,
+                            d, damp, damp, cs)
+        ch, cw = (mi_rows * 4, mi_cols * 4) if k == 0 else (mi_rows * 2,
+                                                            mi_cols * 2)
+        want = before[k][:ch, :cw].copy()
+        for i, (r, c) in enumerate(zip(rows, cols)):
+            want[r:r + bs, c:c + bs] = out[i]
+        check(np.array_equal(after[k][:ch, :cw], want),
+              f"{tag}: device CDEF plane {k} differs from the host filter")
+        filtered += blk.size
+    return (f"{tag} frame: directions and variances of {n} units equal "
+            f"find_dir_batch's; {filtered} filtered units (Y, U, V) and "
+            f"every other unit equal the host filter's")
+
+
+def phase_device_cdef(device, hd: dict, inter: dict) -> None:
+    """Phase 9: phase 6's 1080p keyframe group (cdef_group_device) and
+    phase 5's 720p KF + mini-GOP (the per-frame entry) with
+    SVT_TPU_DEVICE_CDEF=1: one frame of each held against the host's
+    exact direction search and filter; the TUs against the native C
+    backend's run of the same phase, and both "cdef" stage seconds."""
+    words = []
+    os.environ["SVT_TPU_DEVICE_CDEF"] = "1"
+    os.environ["SVT_TPU_TIMING"] = "1"
+    try:
+        for tag, cfg, base in (("1080p keyframe group", HD, hd),
+                               ("720p KF + mini-GOP", INTER, inter)):
+            seen: list = []
+            with recording_cdef_frame(seen):
+                if cfg is HD:
+                    enc, tus, dt = encode(base["frames"], cfg, device, "hand")
+                    cdef_s = enc.stage_seconds["cdef"]
+                else:
+                    enc, tus, _, dt, _ = encode_gop(
+                        base["frames"], cfg["gop"], cfg, device, "hand")
+                    cdef_s = enc.timing["cdef"]
+            check(len(seen) == 1, f"{tag}: the device CDEF backend did not "
+                  "run")
+            held = check_cdef_frame(tag, seen[0], 8, device)
+            diff = sum(a != b for a, b in zip(tus, base["tus"]))
+            words.append(
+                f"{tag}: {held}; {diff} of {len(tus)} TUs differ from the "
+                f"native C backend's run; cdef {cdef_s:.4f} s on the card "
+                f"vs {base['cdef_s']:.4f} s native C; {len(tus)} TUs in "
+                f"{dt:.3f} s")
+    finally:
+        del os.environ["SVT_TPU_DEVICE_CDEF"], os.environ["SVT_TPU_TIMING"]
+    for w in words:
+        print(f"device CDEF: {w}", flush=True)
 
 
 def main() -> int:
@@ -842,15 +1171,19 @@ def main() -> int:
 
     measured = {"fullloop": phase_kernels(device), "sad": phase_sad(device)}
     phase_slice(device)
-    phase_inter(device)
-    phase_hd(device)
-    launches = phase_config2(device)
+    inter = phase_inter(device)
+    hd = phase_hd(device)
+    by_path = {"config 2": phase_config2(device),
+               "config 3": phase_config3(device)}
+    phase_device_cdef(device, hd, inter)
     check(not any(m.split(".")[0] in ("jax", "svt_av1_psyex_tpu")
                   for m in sys.modules), "jax or the JAX package was imported")
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name],
-        "replaces": REPLACES[name], "launches": launches[name],
+        "replaces": REPLACES[name],
+        "launches": sum(p[name] for p in by_path.values()),
+        "launches_by_path": {k: p[name] for k, p in by_path.items()},
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
         "bound_ms": measured[name]["bound_ms"],

@@ -22,6 +22,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 
@@ -230,11 +231,6 @@ class Av1Encoder:
         self.aligned_w = self.mi_cols * 4
         self.aligned_h = self.mi_rows * 4
         self.frame_count = 0
-        if seq.enable_restoration:
-            raise NotImplementedError(
-                "loop restoration is not ported yet (its search has no "
-                "device tier in this package): pass enable_restoration="
-                "False or a preset above 6")
 
     @property
     def _cdef_search_level(self) -> int:
@@ -1010,10 +1006,14 @@ class Av1Encoder:
             return st
         return self._finalize_frame(st)
 
-    @staticmethod
-    def _pick_cdef():
-        """CDEF backend: native C when it builds, else numpy. Both share
-        the full-grid search contract."""
+    def _pick_cdef(self):
+        """CDEF backend: the device search and apply on self.device with
+        SVT_TPU_DEVICE_CDEF=1, else native C when it builds, else numpy.
+        All share the full-grid search contract."""
+        if os.environ.get("SVT_TPU_DEVICE_CDEF") == "1":
+            from ..device.cdef import cdef_search_frame_device
+
+            return partial(cdef_search_frame_device, device=self.device)
         if cdefc.available():
             return cdefc.cdef_search_frame_c
         from ..ops.cdef import cdef_search_frame
@@ -1270,7 +1270,7 @@ class Av1Encoder:
             info, restored = search_plane(
                 p.src, p.recon, deblock[i], pw, ph, ss_y, unit,
                 seq.bit_depth, rdm, chroma=i > 0, preset=self.preset,
-                type_costs=tc)
+                type_costs=tc, device=self.device)
             infos.append(info)
             types.append(info.frame_type)
             if restored is not None:
@@ -1386,13 +1386,19 @@ class Av1Encoder:
         t2 = time.perf_counter()
         jobs = [st["cdef_job"] for st in group if st["cdef_job"] is not None]
         if jobs:
-            _cdef = self._pick_cdef()
-            results = [
-                _cdef(j["recon_planes"], j["src_planes"], j["skip_g"],
-                      j["mi_rows"], j["mi_cols"], j["base_q_idx"],
-                      j["rdcost_fn"], level=self._cdef_search_level,
-                      bit_depth=bd)
-                for j in jobs]
+            if os.environ.get("SVT_TPU_DEVICE_CDEF") == "1":
+                from ..device.cdef import cdef_group_device
+
+                results = cdef_group_device(jobs, self._cdef_search_level,
+                                            bd, device=self.device)
+            else:
+                _cdef = self._pick_cdef()
+                results = [
+                    _cdef(j["recon_planes"], j["src_planes"], j["skip_g"],
+                          j["mi_rows"], j["mi_cols"], j["base_q_idx"],
+                          j["rdcost_fn"], level=self._cdef_search_level,
+                          bit_depth=bd)
+                    for j in jobs]
             it = iter(results)
             for st in group:
                 if st["cdef_job"] is not None:

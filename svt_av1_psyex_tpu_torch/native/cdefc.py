@@ -3,8 +3,8 @@
 Same frame contract as ops.cdef.cdef_search_frame: full-grid padded
 planes + per-8x8-unit mask, per-candidate MSE search, host greedy
 dual-strength selection, filter apply in place. The frame preparation
-and the strength selection are host numpy (`_prep_frame`,
-`_select_strengths`).
+and the strength selection are the device backend's host helpers
+(device/cdef.py `_prep_frame`, `_select_strengths`).
 """
 
 from __future__ import annotations
@@ -13,13 +13,8 @@ import ctypes
 
 import numpy as np
 
-from ..ops.cdef import (
-    _SEARCH_SUBSAMPLE,
-    CDEF_STRENGTH_BITS,
-    CDEF_VERY_LARGE,
-    candidate_strengths,
-    joint_strength_search_dual,
-)
+from ..device.cdef import _prep_frame, _select_strengths
+from ..ops.cdef import _SEARCH_SUBSAMPLE, candidate_strengths
 from .ecenc import get_lib
 
 __all__ = ["available", "cdef_search_frame_c"]
@@ -57,83 +52,6 @@ def available() -> bool:
 
 def _p32(a):
     return a.ctypes.data_as(_I32P)
-
-
-def _prep_frame(recon_planes, src_planes, skip_g, mi_rows, mi_cols):
-    """Build padded planes / padded sources / block mask for one frame.
-    Returns None when nothing is filterable."""
-    nvfb = (mi_rows + 15) // 16
-    nhfb = (mi_cols + 15) // 16
-    nv8, nh8 = mi_rows // 2, mi_cols // 2
-    nv8p, nh8p = nvfb * 8, nhfb * 8
-    g = ~skip_g.astype(bool)
-    nonskip = g[0::2, 0::2] | g[1::2, 0::2] | g[0::2, 1::2] | g[1::2, 1::2]
-    if not nonskip.any():
-        return None
-    maskg = np.zeros((nv8p, nh8p), np.float32)
-    maskg[:nv8, :nh8] = nonskip
-
-    def pad_to(p, hh, ww, ch, cw):
-        # spec 7.15.2 CdefAvailable: everything beyond the CODED area
-        # (mi grid) is the large value — chroma planes carry a +4
-        # overhang margin that must NOT leak in as real samples
-        ph, pw = min(ch, hh), min(cw, ww)
-        out = np.full((hh + 4, ww + 4), CDEF_VERY_LARGE, np.int32)
-        out[2: 2 + ph, 2: 2 + pw] = p[:ph, :pw]
-        return out
-
-    def src_pad(p, hh, ww, ch, cw):
-        ph, pw = min(ch, hh), min(cw, ww)
-        out = np.zeros((hh, ww), np.int32)
-        out[:ph, :pw] = p[:ph, :pw]
-        return out
-
-    coded = [(mi_rows * 4, mi_cols * 4), (mi_rows * 2, mi_cols * 2),
-             (mi_rows * 2, mi_cols * 2)]
-    pads = tuple(pad_to(p, nv8p * (8 if i == 0 else 4),
-                        nh8p * (8 if i == 0 else 4), *coded[i])
-                 for i, p in enumerate(recon_planes))
-    srcs = tuple(src_pad(p, nv8p * (8 if i == 0 else 4),
-                         nh8p * (8 if i == 0 else 4), *coded[i])
-                 for i, p in enumerate(src_planes[: len(recon_planes)]))
-    return pads, srcs, maskg, (nvfb, nhfb, nv8p, nh8p)
-
-
-def _select_strengths(mse0_all, mse1_all, maskg, nvfb, nhfb, cands,
-                      rdcost_fn):
-    """Greedy dual strength selection + nb_strengths RD (host; tiny)."""
-    fb_mask = maskg.reshape(nvfb, 8, nhfb, 8).sum(axis=(1, 3)).reshape(-1) > 0
-    act = np.nonzero(fb_mask)[0]
-    mse0 = mse0_all[act].astype(np.int64)
-    mse1 = mse1_all[act].astype(np.int64)
-    n_act = act.size
-    best_rd = None
-    best = None
-    for i in range(4):
-        nb = 1 << i
-        lev0, lev1, tot = joint_strength_search_dual(nb, mse0, mse1, cands)
-        rate = n_act * i + nb * CDEF_STRENGTH_BITS * 2
-        rd = rdcost_fn(rate * 512, tot * 16)
-        if best_rd is None or rd < best_rd:
-            best_rd = rd
-            best = (i, lev0, lev1)
-    bits, lev0, lev1 = best
-    pair_mse = np.stack([mse0[:, l0] + mse1[:, l1]
-                         for l0, l1 in zip(lev0, lev1)], axis=1)
-    fb_best = np.argmin(pair_mse, axis=1)
-    fb_gi_map = np.full((nvfb, nhfb), -1, np.int32)
-    fb_gi_map[act // nhfb, act % nhfb] = fb_best
-    y_str = [cands[l] for l in lev0]
-    uv_str = [cands[l] for l in lev1]
-    # per-block strengths over the padded grid
-    n = (nvfb * 8) * (nhfb * 8)
-    nh8p = nhfb * 8
-    blk_fb = (np.arange(n) // nh8p // 8) * nhfb + (np.arange(n) % nh8p) // 8
-    sel = np.where(fb_gi_map.reshape(-1)[blk_fb] >= 0,
-                   fb_gi_map.reshape(-1)[blk_fb], 0)
-    y_gi = np.asarray(y_str, np.int32)[sel]
-    uv_gi = np.asarray(uv_str, np.int32)[sel]
-    return bits, y_str, uv_str, fb_gi_map, y_gi, uv_gi
 
 
 def cdef_search_frame_c(recon_planes, src_planes, skip_g, mi_rows: int,

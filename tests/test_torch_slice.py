@@ -187,8 +187,8 @@ def test_gop_decodes_to_recon(gop_encodes, tmp_path):
 
 def test_gop_at_preset_6_byte_identical(tmp_path):
     """Preset 6 adds the commit-time interpolation-filter trial and the
-    tx-depth search to the device inter path (loop restoration, which
-    preset 6 turns on, is not ported and is turned off on both sides)."""
+    tx-depth search to the device inter path (here with loop restoration
+    off on both sides; the next test turns it on)."""
     from svt_av1_psyex_tpu.codec.encoder import Av1Encoder as JaxEncoder
 
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder
@@ -202,6 +202,25 @@ def test_gop_at_preset_6_byte_identical(tmp_path):
     assert any(d.fr.interp_filter == 4 for d in port.dmds[1:])
     if dav1d_loads():
         assert dav1d_mismatches(tmp_path / "p6.ivf", tus, recons, W,
+                                H) == []
+
+
+def test_gop_at_preset_6_with_restoration_byte_identical(tmp_path):
+    """The same GOP with loop restoration on (preset 6's default): the
+    port's device LR search picks as the JAX package's does (8-bit, so
+    the JAX package's float32 scores are exact here), and the streams
+    are byte-identical."""
+    from svt_av1_psyex_tpu.codec.encoder import Av1Encoder as JaxEncoder
+
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder
+    from svt_av1_psyex_tpu_torch.streams import dav1d_loads, dav1d_mismatches
+
+    port, tus, recons = encode_gop(Av1Encoder, preset=6, device="cpu")
+    _, ref_tus, _ = encode_gop(JaxEncoder, preset=6)
+    assert port.seq.enable_restoration
+    assert tus == ref_tus
+    if dav1d_loads():
+        assert dav1d_mismatches(tmp_path / "p6lr.ivf", tus, recons, W,
                                 H) == []
 
 
@@ -231,11 +250,18 @@ def test_host_md_inter_frame_uses_port_motion_field():
 
 
 def test_loop_restoration_not_ported():
+    """Loop restoration runs in the port: it is on by default at presets
+    <= 6 (off above), and enable_restoration=False turns it off."""
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
-    with pytest.raises(NotImplementedError):
-        Av1Encoder(SequenceConfig(width=64, height=64), preset=4,
-                   device="cpu")
+    def lr(**kw):
+        return Av1Encoder(SequenceConfig(width=64, height=64),
+                          device="cpu", **kw).seq.enable_restoration
+
+    assert lr(preset=4) and lr(preset=6)
+    assert not lr(preset=7)
+    assert not lr(preset=6, enable_restoration=False)
+    assert lr(preset=8, enable_restoration=True)
 
 
 def test_port_encode_imports_no_jax():

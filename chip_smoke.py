@@ -5,7 +5,8 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Phases, one line each (the kernel phases one per size and batch), in
-order; any failure raises and the script exits non-zero without a result:
+order, each followed by a "time:" line with its wall seconds; any
+failure raises and the script exits non-zero without a result:
 
 1. device: the card's name and its power limit (nvidia-smi).
 2. build: the hand-written kernels (fullloop, sad), built with nvcc from
@@ -34,7 +35,9 @@ order; any failure raises and the script exits non-zero without a result:
    once with kernels="plain". The TUs must agree byte for byte, or each
    differing frame is printed with its per-depth mode agreement
    (>= 0.98). Where libdav1d.so.6 loads, dav1d must decode every frame to
-   the encoder's reconstruction bit for bit.
+   the encoder's reconstruction bit for bit. Where libaom.so.3 loads, the
+   port's libaom probe (conformance/libaom.py) must accept every TU;
+   where it does not, the phase line says "libaom absent".
 5. inter: config 2's shape without TF and TPL: 1280x720 8-bit "blobs", a
    keyframe and one 16-frame random-access mini-GOP (codec.gop.
    plan_minigop), preset 8, qindex 120, driven as the JAX package's API
@@ -73,11 +76,13 @@ order; any failure raises and the script exits non-zero without a result:
    the port's SvtAv1Encoder at preset 6, CRF 30, everything else at its
    default (random access, keyframe and ARF TF, TPL, psy-rd 1.0,
    variance boost, CDEF, loop restoration), cut to a keyframe and one
-   mini-GOP (9 frames). A 2-frame warm-up (which keeps the keyframe's
-   three loop-restoration stacks), a timed run with the kernels (the
+   mini-GOP (9 frames). A 3-frame warm-up (a keyframe and a 2-frame
+   mini-GOP, so that it reaches the ARF's temporal filter as well as the
+   keyframe's, which is checked; it keeps the keyframe's three
+   loop-restoration stacks), then a timed run with the kernels (the
    main path of this phase, counts set to 0 before it and read after
-   it) and one with kernels="plain", under SVT_TPU_TIMING=1; the TUs
-   must agree as in phase 7. fps, stage seconds (lr_build, lr_up,
+   it) and, second, one with kernels="plain", under SVT_TPU_TIMING=1;
+   the phase line names that order. The TUs must agree as in phase 7. fps, stage seconds (lr_build, lr_up,
    lr_wd, lr_sg, lr_exact, cdef among them), the per-frame qindex, the
    loop-restoration frame types per frame and plane, launches, bytes.
    Then the LR search's device tier alone on the warm-up keyframe's
@@ -85,7 +90,7 @@ order; any failure raises and the script exits non-zero without a result:
    correlations bit-identical; the card's times. Where dav1d loads, the
    keyframe must decode to its recon; the inter frames that do not are
    printed (10-bit p6 inter frames inherit a mismatch from the
-   reference, ROADMAP.md section 3).
+   reference, ROADMAP.md section 3). libaom as in phase 4.
 9. device CDEF: phase 6's 1080p keyframe group (cdef_group_device) and
    phase 5's 720p keyframe + mini-GOP (the per-frame entry) again with
    SVT_TPU_DEVICE_CDEF=1. On one frame of each, the directions and
@@ -93,9 +98,26 @@ order; any failure raises and the script exits non-zero without a result:
    filtered coded area equals ops/cdef.py filter_blocks for the chosen
    strengths; the number of TUs that differ from the native C run of
    the same phase, and both runs' "cdef" stage seconds.
+10. intdct: the integer analysis tier (the port's device.intra.
+   _USE_MATDCT set to False for the phase and restored after, as
+   SVT_TPU_INTDCT=1 sets it at import): phase 5's 720p keyframe +
+   16-frame mini-GOP with the kernels after a short warm-up, under
+   SVT_TPU_TIMING=1 (the main path of this phase: counts set to 0 before
+   it and read after it). The fullloop kernel must launch 0 times (the
+   switch bypasses it, as in the JAX package) and sad more than 0. fps,
+   stage seconds, bytes, the TUs that differ from phase 5's float run;
+   dav1d and libaom as in phase 4. The keyframe's and the first inter
+   frame's analysis calls are recorded and run again on the CPU: every
+   fullloop_int call's residuals, coefficients, eob and inverse equal
+   the CPU's bit for bit, and the winning mode (keyframe) or candidate
+   (inter frame) agrees on >= 0.98 of the blocks of each depth. Then
+   ops.int_kernels.frame_intra_analysis on one 1920x1088 luma frame
+   (phase 6's first, edge-padded), timed with CUDA events: sse, sad and
+   pred_dc equal the CPU's, var8x8 within rtol 1e-5, atol 1e-4 (float32
+   means of 64 rounded squares).
 
-Then a JSON line of the kernels ("launches": the counts of phases 7 and
-8's kernel runs summed, "launches_by_path" each of them; fullloop
+Then a JSON line of the kernels ("launches": the counts of the kernel
+runs of phases 7, 8 and 10 summed, "launches_by_path" each of them; fullloop
 "ms"/"plain_ms": its device time summed
 over its launches in one 1080p 16-frame analysis, "bound_ms" the sum of
 those launches' bounds, "max_abs_err": the largest |inverse residual|
@@ -140,7 +162,10 @@ CONFIG2 = dict(w=1280, h=720, frames=48, preset=8, crf=30, tpl_frames=24,
 # CDEF and loop restoration on at their defaults) through the port's API,
 # cut to a keyframe and one mini-GOP; a 2-frame warm-up first
 CONFIG3 = dict(w=1920, h=1080, bd=10, frames=9, preset=6, crf=30,
-               warmup_frames=2)
+               warmup_frames=3)
+# the integer analysis tier's frame analysis on one 1080p luma frame,
+# padded to a multiple of its 64x64 blocks
+INTDCT_FRAME = dict(h=1088, blk=64)
 KERNELS = ("fullloop", "sad")
 REPLACES = {"fullloop": "svt_av1_psyex_tpu/ops/pallas/fullloop.py:151",
             "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69"}
@@ -441,6 +466,20 @@ def dav1d_check(tag: str, enc, tus: list, cfg: dict, recons=None) -> str:
     return f"dav1d bit-exact on {len(recons)} frames"
 
 
+def libaom_check(tag: str, tus: list, cfg: dict) -> str:
+    """Where libaom.so.3 loads, the port's libaom probe must accept
+    every TU (it raises on the first it rejects). Returns a word for the
+    phase line."""
+    from svt_av1_psyex_tpu_torch.conformance import libaom
+    from svt_av1_psyex_tpu_torch.streams import write_ivf
+
+    if not libaom.available():
+        return "libaom absent"
+    libaom.validate_ivf(write_ivf(OUT_DIR / f"{tag}_libaom.ivf", tus,
+                                  cfg["w"], cfg["h"]))
+    return f"libaom accepts all {len(tus)} TUs"
+
+
 def mode_agreement(enc_k, enc_p, frames: list, cfg: dict) -> list:
     """Per frame, per depth: share of blocks whose device mode decision
     agrees between the kernel run (enc_k) and the plain run (enc_p)."""
@@ -487,13 +526,15 @@ def phase_slice(device) -> None:
             check(min(agree[i].values()) >= 0.98,
                   f"slice: frame {i} mode agreement below 0.98")
     gate = dav1d_check("config1", enc_k, tus_k, CONFIG1)
+    aom = libaom_check("config1", tus_k, CONFIG1)
     print(f"slice: config 1 ({CONFIG1['w']}x{CONFIG1['h']}, "
           f"{CONFIG1['frames']} frames, p{CONFIG1['preset']}, "
           f"q{CONFIG1['qindex']}): kernels {CONFIG1['frames'] / dt_k:.3f} "
           f"fps (s: {stages(enc_k)}), plain "
           f"{CONFIG1['frames'] / dt_p:.3f} fps (s: {stages(enc_p)}); "
           f"{len(diff)} of "
-          f"{len(tus_k)} TUs differ; {gate}; fullloop launches {launches}; "
+          f"{len(tus_k)} TUs differ; {gate}; {aom}; fullloop launches "
+          f"{launches}; "
           f"{sum(map(len, tus_k))} bytes", flush=True)
 
 
@@ -643,13 +684,15 @@ def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
     (everything else at its default, so keyframe TF, ARF TF and TPL are
     on; the clip's 30 fps), recording per packet the coded frame's
     (qindex, device MD, loop-restoration frame types), or None for a
-    show-existing packet, and the r0 of every TPL group."""
+    show-existing packet, the r0 of every TPL group, and the number of
+    temporal-filter calls (keyframe and ARF) in `tf_calls`."""
     from svt_av1_psyex_tpu_torch.api.encoder import SvtAv1Encoder
 
     class Recording(SvtAv1Encoder):
         def init(self):
             super().init()
             self.coded, self.r0s, self._last = [], [], None
+            self.tf_calls = 0
             enc = self._enc
             begin, resume = enc.begin_frame, enc.resume_frame
 
@@ -666,6 +709,10 @@ def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
                 return tu
 
             enc.begin_frame, enc.resume_frame = begin_frame, resume_frame
+
+        def _temporal_filter(self, planes, nbrs, strength):
+            self.tf_calls += 1
+            return super()._temporal_filter(planes, nbrs, strength)
 
         def _run_tpl(self, look, base_qindex):
             model = super()._run_tpl(look, base_qindex)
@@ -944,8 +991,13 @@ def phase_config3(device) -> dict:
     frames = make_frames(cfg)
     stacks: list = []
     with recording_lr_stacks(stacks):   # the warm-up keyframe's planes
-        api_encode(frames[:cfg["warmup_frames"]], cfg, device, "hand")
+        warm, _, _, _ = api_encode(frames[:cfg["warmup_frames"]], cfg,
+                                   device, "hand")
     check(len(stacks) == 3, "config 3: the warm-up ran no LR search")
+    # the keyframe's filter and the 2-frame mini-GOP's ARF filter
+    check(warm.tf_calls >= 2, f"config 3: the warm-up ran "
+          f"{warm.tf_calls} temporal filter calls, not the keyframe's and "
+          "the ARF's")
     os.environ["SVT_TPU_TIMING"] = "1"  # stage clock, LR's sub-stages
     try:
         cuda_fullloop.launches = cuda_sad.launches = 0
@@ -990,18 +1042,23 @@ def phase_config3(device) -> dict:
                 f"recon {bad}")
     else:
         gate = "not decoded (dav1d absent)"
+    aom = libaom_check("config3", [p.data for p in pk], cfg)
     alone = lr_alone(stacks, device)
     print(f"config 3: {cfg['w']}x{cfg['h']} 10-bit, {cfg['frames']} frames "
           f"(a keyframe + one mini-GOP), p{cfg['preset']}, CRF "
           f"{cfg['crf']}, TF + TPL + psy-rd + variance boost + CDEF + LR "
-          f"on, through SvtAv1Encoder ({len(pk)} TUs): kernels "
+          f"on, through SvtAv1Encoder ({len(pk)} TUs; a "
+          f"{cfg['warmup_frames']}-frame warm-up with {warm.tf_calls} "
+          f"temporal filter calls, then the kernel run first and the plain "
+          f"run second): kernels "
           f"{cfg['frames'] / dt_k:.4f} fps ({dt_k:.3f} s; stage seconds "
           f"{stage}), plain {cfg['frames'] / dt_p:.4f} fps ({dt_p:.3f} s; "
           f"{ {k: round(v, 4) for k, v in api_p._enc.timing.items()} }); "
           f"qindex per coded frame (pts, q): kernels {qk}, plain {qp_}; LR "
           f"frame types (Y, U, V) per coded frame (pts, types): {lr_types};"
-          f" {len(diff)} of {len(pk)} TUs differ; {gate}; launches "
-          f"{launches}; {sum(len(p.data) for p in pk)} bytes", flush=True)
+          f" {len(diff)} of {len(pk)} TUs differ; {gate}; {aom}; "
+          f"launches {launches}; {sum(len(p.data) for p in pk)} bytes",
+          flush=True)
     print(f"config 3: LR search alone on the warm-up keyframe, bit-exact "
           f"card vs CPU: {alone}", flush=True)
     return launches
@@ -1138,6 +1195,215 @@ def phase_device_cdef(device, hd: dict, inter: dict) -> None:
         print(f"device CDEF: {w}", flush=True)
 
 
+@contextmanager
+def recording_int_analysis(out: dict):
+    """Keeps, for the first keyframe analysis (codec.md_device's
+    intra_analysis_batch) and the first inter-frame analysis
+    (inter_analysis), their arguments, their packed result and, for
+    every ops.int_kernels.fullloop_int call made inside them, its
+    arguments and outputs: out["intra"] and out["inter"]."""
+    import svt_av1_psyex_tpu_torch.codec.md_device as MD
+    import svt_av1_psyex_tpu_torch.ops.int_kernels as IK
+
+    names = {"intra": "intra_analysis_batch", "inter": "inter_analysis"}
+    orig = {kind: getattr(MD, name) for kind, name in names.items()}
+    orig_loop = IK.fullloop_int
+    active: list = []
+
+    def wrap(kind):
+        def run(*args, **kwargs):
+            if kind in out:
+                return orig[kind](*args, **kwargs)
+            out[kind] = {"run": orig[kind], "args": args, "kwargs": kwargs,
+                         "loops": []}
+            active.append(kind)
+            try:
+                out[kind]["packed"] = orig[kind](*args, **kwargs)
+            finally:
+                active.pop()
+            return out[kind]["packed"]
+        return run
+
+    def loop(resid, qp6, n, log_scale, bit_depth, want_inv=False):
+        res = orig_loop(resid, qp6, n, log_scale, bit_depth, want_inv)
+        if active:
+            out[active[-1]]["loops"].append(
+                ((resid, qp6, n, log_scale, bit_depth), res))
+        return res
+
+    for kind, name in names.items():
+        setattr(MD, name, wrap(kind))
+    IK.fullloop_int = loop
+    try:
+        yield
+    finally:
+        for kind, name in names.items():
+            setattr(MD, name, orig[kind])
+        IK.fullloop_int = orig_loop
+
+
+def check_int_analysis(rec: dict) -> str:
+    """The recorded keyframe and inter-frame analyses of phase 10 against
+    the CPU, in one CPU run of each: every fullloop_int call of the CPU
+    run gets the card's input, and its coefficients, eob and inverse
+    equal the card's bit for bit (dist and rate are float32 sums and
+    log2s: printed); the winning mode / candidate agrees on >= 0.98 of
+    each depth's blocks."""
+    import numpy as np
+    import torch
+
+    import svt_av1_psyex_tpu_torch.ops.int_kernels as IK
+    from svt_av1_psyex_tpu_torch.device.inter import unpack_inter_analysis
+    from svt_av1_psyex_tpu_torch.device.intra import unpack_rd_analysis
+
+    loop = IK.fullloop_int
+    words = []
+    for kind, key, unpack in (("intra", "mode", unpack_rd_analysis),
+                              ("inter", "cand", unpack_inter_analysis)):
+        r = rec[kind]
+        cpu_loops = []
+
+        def capture(resid, qp6, n, log_scale, bit_depth, want_inv=False):
+            met, inv = loop(resid, qp6, n, log_scale, bit_depth, True)
+            cpu_loops.append((resid, IK.forward_txfm2d_int(resid, n, n, 0),
+                              met, inv))
+            return met, (inv if want_inv else None)
+
+        args = [a.cpu() if torch.is_tensor(a) else a for a in r["args"]]
+        IK.fullloop_int = capture
+        try:
+            packed_c = r["run"](*args, **r["kwargs"]).cpu().numpy()
+        finally:
+            IK.fullloop_int = loop
+        check(len(r["loops"]) > 0 and len(cpu_loops) == len(r["loops"]),
+              f"intdct: the {kind} analysis made {len(r['loops'])} "
+              f"fullloop_int calls on the card, {len(cpu_loops)} on the CPU")
+        blocks, dist_rel, rate_eq = 0, 0.0, []
+        for ((resid, qp6, n, ls, bd), (met, _)), (rc, coef_c, mc, ic) in zip(
+                r["loops"], cpu_loops):
+            check(torch.equal(resid.cpu(), rc),
+                  f"intdct {kind} n={n}: the residuals differ card vs CPU")
+            mk, ik = loop(resid, qp6, n, ls, bd, True)
+            mk = mk.cpu()
+            check(torch.equal(mk, met.cpu()),
+                  f"intdct {kind} n={n}: metrics depend on want_inv")
+            check(torch.equal(IK.forward_txfm2d_int(resid, n, n, 0).cpu(),
+                              coef_c),
+                  f"intdct {kind} n={n}: coefficients differ card vs CPU")
+            check(torch.equal(mk[:, 2], mc[:, 2])
+                  and torch.equal(ik.cpu(), ic),
+                  f"intdct {kind} n={n}: eob or inverse differ card vs CPU")
+            dist_rel = max(dist_rel, ((mk[:, 0] - mc[:, 0]).abs()
+                                      / mc[:, 0].clamp_min(1.0)).max().item())
+            rate_eq.append((mk[:, 1] == mc[:, 1]).double().mean().item())
+            blocks += resid.shape[0]
+        packed_k = r["packed"].cpu().numpy()
+        depths = r["kwargs"]["depths"]
+        if kind == "intra":
+            hp, wp = args[0].shape[1:]
+            got = unpack(packed_k[0], hp, wp, depths)
+            want = unpack(packed_c[0], hp, wp, depths)
+        else:
+            hp, wp = args[0].shape
+            got = unpack(packed_k, hp, wp, depths)
+            want = unpack(packed_c, hp, wp, depths)
+        agree = {blk: float(np.mean(got[blk][key] == want[blk][key]))
+                 for blk in depths}
+        check(min(agree.values()) >= 0.98,
+              f"intdct {kind}: {key} agreement card vs CPU {agree}")
+        words.append(
+            f"{kind} ({len(r['loops'])} fullloop_int calls, {blocks} "
+            f"blocks): residuals, coefficients, eob and inverse "
+            f"bit-identical card vs CPU; largest relative dist difference "
+            f"{dist_rel:.3g}; rate equal on >= {min(rate_eq):.6f} of the "
+            f"blocks of a call; {key} agreement per depth {agree}")
+    return "; ".join(words)
+
+
+def frame_analysis_on_card(frame: list, device) -> str:
+    """ops.int_kernels.frame_intra_analysis on one 1920x1088 luma frame
+    on the card, timed with CUDA events, against the CPU."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psyex_tpu_torch.ops.int_kernels import frame_intra_analysis
+
+    y = frame[0]
+    luma = np.pad(y, ((0, INTDCT_FRAME["h"] - y.shape[0]), (0, 0)),
+                  mode="edge").astype(np.int32)
+    blk = INTDCT_FRAME["blk"]
+    card = torch.from_numpy(luma).to(device)
+    got = frame_intra_analysis(card, blk)
+    want = frame_intra_analysis(torch.from_numpy(luma), blk)
+    for k in ("sse", "sad", "pred_dc"):
+        check(torch.equal(got[k].cpu(), want[k]),
+              f"intdct frame analysis: {k} differs card vs CPU")
+    var_err = (got["var8x8"].cpu() - want["var8x8"]).abs().max().item()
+    check(torch.allclose(got["var8x8"].cpu(), want["var8x8"], rtol=1e-5,
+                         atol=1e-4), "intdct frame analysis: var8x8")
+    ms = cuda_ms(lambda: frame_intra_analysis(card, blk))
+    return (f"frame_intra_analysis on {luma.shape[1]}x{luma.shape[0]} "
+            f"({got['sse'].shape[1]} blocks of {blk}x{blk}): {ms:.4f} ms on "
+            f"the card (CUDA events); sse, sad and pred_dc equal the CPU's, "
+            f"var8x8 max |diff| {var_err:.3g}")
+
+
+def phase_intdct(device, inter: dict, hd: dict) -> dict:
+    """Phase 10: phase 5's cell on the integer analysis tier; its
+    analysis batches card vs CPU; the frame analysis at 1080p. Returns
+    the run's launch counts (the main path of this phase)."""
+    import svt_av1_psyex_tpu_torch.device.intra as PI
+    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
+    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
+
+    cfg = INTER
+    frames = inter["frames"]
+    flag = PI._USE_MATDCT
+    PI._USE_MATDCT = False
+    rec: dict = {}
+    try:
+        encode_gop(frames, cfg["warmup_gop"], cfg, device, "hand")
+        os.environ["SVT_TPU_TIMING"] = "1"
+        try:
+            cuda_fullloop.launches = cuda_sad.launches = 0
+            with recording_int_analysis(rec):
+                enc, tus, recons, dt, coded = encode_gop(
+                    frames, cfg["gop"], cfg, device, "hand")
+            launches = {"fullloop": cuda_fullloop.launches,
+                        "sad": cuda_sad.launches}
+        finally:
+            del os.environ["SVT_TPU_TIMING"]
+        check(launches["fullloop"] == 0, f"intdct: the fullloop kernel "
+              f"launched {launches['fullloop']} times under the switch")
+        check(launches["sad"] > 0, "intdct: the main path launched no sad "
+              "kernel")
+        check(len(recons) == cfg["frames"] and all(len(t) > 0 for t in tus),
+              "intdct: expected a non-empty TU per coded frame and a recon "
+              "per displayed frame")
+        check("intra" in rec and "inter" in rec,
+              "intdct: the keyframe or inter analysis was not recorded")
+        t0 = time.perf_counter()
+        held = check_int_analysis(rec)
+        held += f" ({time.perf_counter() - t0:.1f} s with the CPU runs)"
+        gate = dav1d_check("intdct", enc, tus, cfg, recons=recons)
+        aom = libaom_check("intdct", tus, cfg)
+        alone = frame_analysis_on_card(hd["frames"][0], device)
+    finally:
+        PI._USE_MATDCT = flag
+    diff = sum(a != b for a, b in zip(tus, inter["tus"]))
+    print(f"intdct: {cfg['w']}x{cfg['h']} 8-bit, keyframe + {cfg['gop']}-"
+          f"frame mini-GOP ({len(tus)} TUs), p{cfg['preset']}, "
+          f"q{cfg['qindex']}, analysis on the integer networks: "
+          f"{cfg['frames'] / dt:.3f} fps ({dt:.3f} s; host tier per stage, "
+          f"s: { {k: round(v, 4) for k, v in enc.timing.items()} }); "
+          f"{diff} of {len(tus)} TUs differ from phase 5's float analysis; "
+          f"{gate}; {aom}; launches {launches}; {sum(map(len, tus))} bytes",
+          flush=True)
+    print(f"intdct: {held}", flush=True)
+    print(f"intdct: {alone}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1169,13 +1435,23 @@ def main() -> int:
     print(f"build: {len(KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    measured = {"fullloop": phase_kernels(device), "sad": phase_sad(device)}
-    phase_slice(device)
-    inter = phase_inter(device)
-    hd = phase_hd(device)
-    by_path = {"config 2": phase_config2(device),
-               "config 3": phase_config3(device)}
-    phase_device_cdef(device, hd, inter)
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"time: {label} took {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return out
+
+    measured = {"fullloop": timed("phase 3 (fullloop)", phase_kernels, device),
+                "sad": timed("phase 3 (sad)", phase_sad, device)}
+    timed("phase 4 (slice)", phase_slice, device)
+    inter = timed("phase 5 (inter)", phase_inter, device)
+    hd = timed("phase 6 (1080p)", phase_hd, device)
+    by_path = {"config 2": timed("phase 7 (config 2)", phase_config2, device),
+               "config 3": timed("phase 8 (config 3)", phase_config3, device)}
+    timed("phase 9 (device CDEF)", phase_device_cdef, device, hd, inter)
+    by_path["intdct"] = timed("phase 10 (intdct)", phase_intdct, device,
+                              inter, hd)
     check(not any(m.split(".")[0] in ("jax", "svt_av1_psyex_tpu")
                   for m in sys.modules), "jax or the JAX package was imported")
 

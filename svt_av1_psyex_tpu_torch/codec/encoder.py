@@ -1008,13 +1008,14 @@ class Av1Encoder:
 
     def _pick_cdef(self):
         """CDEF backend: the device search and apply on self.device with
-        SVT_TPU_DEVICE_CDEF=1, else native C when it builds, else numpy.
-        All share the full-grid search contract."""
+        SVT_TPU_DEVICE_CDEF=1, else native C when it builds (unless
+        SVT_TPU_HOST_CDEF=1), else numpy. All share the full-grid search
+        contract."""
         if os.environ.get("SVT_TPU_DEVICE_CDEF") == "1":
             from ..device.cdef import cdef_search_frame_device
 
             return partial(cdef_search_frame_device, device=self.device)
-        if cdefc.available():
+        if os.environ.get("SVT_TPU_HOST_CDEF") != "1" and cdefc.available():
             return cdefc.cdef_search_frame_c
         from ..ops.cdef import cdef_search_frame
 

@@ -1,1 +1,1 @@
-"""Conformance oracles: the dav1d decode harness."""
+"""Conformance oracles: the dav1d decode harness and the libaom probe."""

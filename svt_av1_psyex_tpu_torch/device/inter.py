@@ -8,7 +8,9 @@ refs) chains, on the device:
     -> motion-compensated prediction tiles (clipped gathers == spec MC
        sample clamping at full-pel)
     -> analysis transform, quantizer and inverse (the fullloop kernel for
-       blk <= 32, the float32 matmul chain for blk 64)
+       blk <= 32, the float32 matmul chain for blk 64; the integer
+       networks for every blk under SVT_TPU_INTDCT=1, device.intra.
+       analysis_loop)
     -> distortion + calibrated rate proxy
     -> RD reduction against the intra candidates (device/intra.py)
 
@@ -36,10 +38,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.fullloop_ref import fullloop_ref
 from ..params import reference_constants
-from ..runtime import fullloop_impl
-from .intra import N_MODES, _analyze_depth, _extract_blocks, psy_energy, qp6_for
+from .intra import (
+    N_MODES,
+    _analyze_depth,
+    _extract_blocks,
+    analysis_loop,
+    psy_energy,
+    qp6_for,
+)
 from .me import fullpel_lattice, geometry_best
 
 # MV-rate proxy (1/512-bit units): base covers joint/sign/class symbols;
@@ -68,12 +75,13 @@ def _mc_tiles(ref: torch.Tensor, mv_y: torch.Tensor, mv_x: torch.Tensor,
     return ref[rows[:, :, None], cols[:, None, :]]
 
 
-def _txrd(resid: torch.Tensor, blk: int, qp_row: np.ndarray, kernels: str):
-    """Analysis RD of a residual batch: (dist, rate, sse, inv_residual).
-    blk <= 32 through the fullloop kernel, blk 64 through the matmul
-    chain (its plain version), as the intra analysis does."""
+def _txrd(resid: torch.Tensor, blk: int, qp_row: np.ndarray, kernels: str,
+          bit_depth: int):
+    """Analysis RD of a residual batch: (dist, rate, sse, inv_residual),
+    through the chain the intra analysis takes (device.intra.
+    analysis_loop)."""
     log_scale = 2 if blk == 64 else (1 if blk == 32 else 0)
-    run = fullloop_ref if blk > 32 else fullloop_impl(kernels)
+    run = analysis_loop(blk, kernels, bit_depth)
     metrics, inv = run(resid, qp6_for(qp_row, log_scale), blk, log_scale,
                        want_inv=True)
     return metrics[:, 0], metrics[:, 1], metrics[:, 3], inv
@@ -95,7 +103,8 @@ def _cand_j(tiles, pred, crate, blk: int, qp_row, rd_row: torch.Tensor,
     rdmult = rd_row[0].to(torch.float32)
     skip0 = rd_row[1].to(torch.float32)
     skip1 = rd_row[2].to(torch.float32)
-    dist, rate, sse, inv = _txrd(tiles - pred, blk, qp_row, kernels)
+    dist, rate, sse, inv = _txrd(tiles - pred, blk, qp_row, kernels,
+                                 bit_depth)
     if psy:
         had = reference_constants(tiles.device)["had8"]
         maxpix = (1 << bit_depth) - 1

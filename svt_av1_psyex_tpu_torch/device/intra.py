@@ -11,14 +11,21 @@ conformant commit.
 
 Blocks of 32 and smaller go through the fullloop kernel (the registry in
 runtime.py picks the hand kernel or its plain version); blk 64 stays on
-two float32 matmuls per transform, as in the reference.
+two float32 matmuls per transform, as in the reference. With
+SVT_TPU_INTDCT=1 every block size goes through the exact integer
+networks of ops/int_kernels.py instead, and neither of those float
+chains runs (analysis_loop), as in the reference.
 """
 
 from __future__ import annotations
 
+import os
+from functools import partial
+
 import numpy as np
 import torch
 
+from ..ops import int_kernels
 from ..ops.fullloop_ref import fullloop_ref
 from ..params import reference_constants
 from ..runtime import fullloop_impl
@@ -26,6 +33,24 @@ from ..runtime import fullloop_impl
 # mode order of the device candidate lattice (IntraMode values)
 DEVICE_MODES = (0, 1, 2, 9, 10, 11, 12)  # DC V H SMOOTH SMOOTH_V SMOOTH_H PAETH
 N_MODES = len(DEVICE_MODES)
+
+# Analysis transforms as float32 matmuls (the fullloop kernel for blk <=
+# 32, device/matdct.py for blk 64) instead of the exact integer networks.
+# SVT_TPU_INTDCT=1 restores the integer networks; read once, at import,
+# as the JAX package's device/intra.py reads it. device/inter.py and
+# device/tpl.py follow this flag through analysis_loop.
+_USE_MATDCT = os.environ.get("SVT_TPU_INTDCT") != "1"
+
+
+def analysis_loop(blk: int, kernels: str, bit_depth: int):
+    """The transform -> quantize -> inverse -> rate chain for blocks of
+    size blk, called as fullloop(resid, qp6, blk, log_scale, want_inv):
+    the integer networks for every blk when _USE_MATDCT is off, else the
+    fullloop kernel (or its plain version, per `kernels`) for blk <= 32
+    and the float32 matmul chain for blk 64."""
+    if not _USE_MATDCT:
+        return partial(int_kernels.fullloop_int, bit_depth=bit_depth)
+    return fullloop_ref if blk > 32 else fullloop_impl(kernels)
 
 
 def _predict_modes(tiles, above, left, tl, blk: int,
@@ -130,7 +155,7 @@ def _analyze_depth(lumas: torch.Tensor, blk: int, qp_rows: np.ndarray,
     b = fb // f
     resid = (tiles[None] - preds).reshape(m, f, b, blk, blk)
     log_scale = 2 if blk == 64 else (1 if blk == 32 else 0)
-    run = fullloop_ref if blk > 32 else fullloop_impl(kernels)
+    run = analysis_loop(blk, kernels, bit_depth)
     # one launch per distinct qp row (one for encode_keyframes)
     rows, group = np.unique(np.asarray(qp_rows), axis=0, return_inverse=True)
     if len(rows) == 1:

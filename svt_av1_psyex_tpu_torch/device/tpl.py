@@ -9,15 +9,17 @@ frame's step, batched over the frame's 16x16 blocks,
   * motion-searches against the previous SOURCE frame (device/me.py
     `fullpel_lattice`, through the sad_lattice kernel),
   * evaluates the residual through the analysis transform, quantizer and
-    rate proxy (the fullloop kernel at n = 16): once predicting from the
-    source reference (srcrf_*) and once from the TPL recon of the
-    previous frame (recrf_*),
+    rate proxy (the fullloop kernel at n = 16, or the integer networks
+    under SVT_TPU_INTDCT=1, device.intra.analysis_loop): once predicting
+    from the source reference (srcrf_*) and once from the TPL recon of
+    the previous frame (recrf_*),
   * reconstructs the frame for the next step.
 
 The reference's lax.scan over frames is a Python loop here: each frame
 predicts from the previous frame's TPL recon, so the steps are
 sequential by nature. The recon is carried in float32, unrounded, as the
-reference carries it; the recrf residual is therefore float32.
+reference carries it; the recrf residual is therefore float32 (int32
+under SVT_TPU_INTDCT=1, whose inverse is integer).
 
 Only the per-block stats grids leave the device; the host synthesizer
 and the r0/beta math are codec/tpl.py.
@@ -29,9 +31,14 @@ import numpy as np
 import torch
 
 from ..params import reference_constants
-from ..runtime import fullloop_impl
 from .inter import _mc_tiles
-from .intra import _block_neighbors, _extract_blocks, _predict_modes, qp6_for
+from .intra import (
+    _block_neighbors,
+    _extract_blocks,
+    _predict_modes,
+    analysis_loop,
+    qp6_for,
+)
 from .me import fullpel_lattice, geometry_best
 
 BLK = 16  # TPL synth block size (tpl_ctrls.synth_blk_size default 16)
@@ -41,12 +48,13 @@ STAT_FIELDS = ("srcrf_dist", "recrf_dist", "srcrf_rate", "recrf_rate",
                "mv_y", "mv_x", "is_inter")
 
 
-def _txrd16(resid: torch.Tensor, qp_row: np.ndarray, kernels: str):
+def _txrd16(resid: torch.Tensor, qp_row: np.ndarray, bit_depth: int,
+            kernels: str):
     """(dist, rate, inverse residual) of a (B, 16, 16) residual batch at
-    the TPL q: the fullloop kernel at n = 16, log_scale 0."""
-    metrics, inv = fullloop_impl(kernels)(resid.contiguous(),
-                                          qp6_for(qp_row, 0), BLK, 0,
-                                          want_inv=True)
+    the TPL q: the analysis chain at n = 16, log_scale 0."""
+    run = analysis_loop(BLK, kernels, bit_depth)
+    metrics, inv = run(resid.contiguous(), qp6_for(qp_row, 0), BLK, 0,
+                       want_inv=True)
     return metrics[:, 0], metrics[:, 1], inv
 
 
@@ -100,7 +108,7 @@ def tpl_group_stats(srcs: torch.Tensor, qp_row: np.ndarray,
     # frame 0: intra only
     tiles = _extract_blocks(srcs[:1], BLK)
     ipred = _best_intra(srcs[0], tiles)
-    idist, irate, iinv = _txrd16(tiles - ipred, qp_row, kernels)
+    idist, irate, iinv = _txrd16(tiles - ipred, qp_row, bit_depth, kernels)
     rec = _recon_from(ipred, iinv, h, w, maxpix)
     zeros = torch.zeros((nh, nw), dtype=torch.float32, device=srcs.device)
     stats = [torch.stack([_grid(idist * 16.0, nh, nw),
@@ -112,7 +120,8 @@ def tpl_group_stats(srcs: torch.Tensor, qp_row: np.ndarray,
         cur, prev_src = srcs[i], srcs[i - 1]
         tiles = _extract_blocks(srcs[i: i + 1], BLK)
         ipred = _best_intra(cur, tiles)
-        idist, irate, iinv = _txrd16(tiles - ipred, qp_row, kernels)
+        idist, irate, iinv = _txrd16(tiles - ipred, qp_row, bit_depth,
+                                     kernels)
 
         # source-based full-pel ME (64-SB lattice -> 16x16 grid)
         lat = fullpel_lattice(cur, prev_src, maxpix, kernels)
@@ -121,8 +130,10 @@ def tpl_group_stats(srcs: torch.Tensor, qp_row: np.ndarray,
 
         pred_s = _mc_tiles(prev_src, mv_y, mv_x, BLK)
         pred_r = _mc_tiles(rec, mv_y, mv_x, BLK)
-        sdist, srate, _ = _txrd16(tiles - pred_s, qp_row, kernels)
-        rdist, rrate, rinv = _txrd16(tiles - pred_r, qp_row, kernels)
+        sdist, srate, _ = _txrd16(tiles - pred_s, qp_row, bit_depth,
+                                  kernels)
+        rdist, rrate, rinv = _txrd16(tiles - pred_r, qp_row, bit_depth,
+                                     kernels)
         # the closed-loop result can't beat the source-ref one (the
         # reference enforces recrf >= srcrf)
         rdist = torch.maximum(rdist, sdist)

@@ -18,7 +18,7 @@ from .utils.ivf import IvfWriter
 from .utils.y4m import VideoFormat
 
 __all__ = ["IvfWriter", "VideoFormat", "decode_ivf", "dav1d_loads",
-           "write_ivf", "dav1d_mismatches"]
+           "write_ivf", "dav1d_mismatches", "dav1d_residue"]
 
 
 def dav1d_loads() -> bool:
@@ -42,16 +42,30 @@ def write_ivf(path: Path, tus: list, width: int, height: int) -> Path:
     return path
 
 
-def dav1d_mismatches(path: Path, tus: list, recons: list, width: int,
-                     height: int) -> list[int]:
-    """Decode `tus` with dav1d (via an IVF at `path`) and return the
-    indices of the frames whose output differs from `recons` (per frame,
-    the encoder's planes, cropped to the decoded size). Raises if dav1d
-    outputs another number of frames."""
+def dav1d_residue(path: Path, tus: list, recons: list, width: int,
+                  height: int) -> dict[int, tuple[int, int]]:
+    """Decode `tus` with dav1d (via an IVF at `path`) and hold each frame
+    against `recons` (per frame, the encoder's planes, cropped to the
+    decoded size). Returns {frame index: (samples that differ over all
+    planes, largest |difference|)} for the frames that differ. Raises if
+    dav1d outputs another number of frames."""
     dec = decode_ivf(write_ivf(path, tus, width, height))
     if len(dec) != len(recons):
         raise RuntimeError(f"dav1d decoded {len(dec)} frames, the encoder "
                            f"made {len(recons)}")
-    return [i for i, (d, r) in enumerate(zip(dec, recons))
-            if not all(np.array_equal(dp, rp[: dp.shape[0], : dp.shape[1]])
-                       for dp, rp in zip(d, r))]
+    out = {}
+    for i, (d, r) in enumerate(zip(dec, recons)):
+        diffs = [np.abs(dp.astype(np.int32)
+                        - rp[: dp.shape[0], : dp.shape[1]].astype(np.int32))
+                 for dp, rp in zip(d, r)]
+        n = sum(int(np.count_nonzero(x)) for x in diffs)
+        if n:
+            out[i] = (n, max(int(x.max()) for x in diffs))
+    return out
+
+
+def dav1d_mismatches(path: Path, tus: list, recons: list, width: int,
+                     height: int) -> list[int]:
+    """The indices of the frames whose dav1d output differs from
+    `recons` (see dav1d_residue)."""
+    return sorted(dav1d_residue(path, tus, recons, width, height))

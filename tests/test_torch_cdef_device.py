@@ -349,3 +349,41 @@ def test_minigop_streams_byte_identical(device_cdef):
     _, ref_tus, _ = encode_gop(JaxEncoder)
     assert len(calls) == 5 and all(d.type == "cpu" for d in calls)
     assert tus == ref_tus
+
+
+def test_host_cdef_switch_streams_byte_identical(monkeypatch):
+    """SVT_TPU_HOST_CDEF=1 selects the numpy search (ops/cdef.py
+    cdef_search_frame) in both packages even where native C builds: the
+    KF + 4-frame mini-GOP runs it on every frame, never the native
+    search, and the streams are byte-identical."""
+    from test_torch_slice import encode_gop
+
+    import svt_av1_psyex_tpu.ops.cdef as JC
+    from svt_av1_psyex_tpu.codec.encoder import Av1Encoder as JaxEncoder
+
+    import svt_av1_psyex_tpu_torch.native.cdefc as PCC
+    import svt_av1_psyex_tpu_torch.ops.cdef as PC
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder
+
+    calls = {"port": 0, "jax": 0}
+
+    def spy(mod, key):
+        orig = mod.cdef_search_frame
+
+        def run(*a, **k):
+            calls[key] += 1
+            return orig(*a, **k)
+
+        monkeypatch.setattr(mod, "cdef_search_frame", run)
+
+    def native(*a, **k):
+        raise AssertionError("the native C search ran")
+
+    spy(PC, "port")
+    spy(JC, "jax")
+    monkeypatch.setattr(PCC, "cdef_search_frame_c", native)
+    monkeypatch.setenv("SVT_TPU_HOST_CDEF", "1")
+    _, tus, _ = encode_gop(Av1Encoder, device="cpu")
+    _, ref_tus, _ = encode_gop(JaxEncoder)
+    assert calls == {"port": 5, "jax": 5}
+    assert tus == ref_tus

@@ -94,7 +94,9 @@ def test_port_clip_equals_the_repository_clip():
 
 
 def test_port_process_loads_neither_package():
-    """A process that imports every module of the port, encodes 3 frames
+    """A process that imports every module of the port (among them the
+    integer analysis tier ops/int_kernels.py, which it runs, and the
+    libaom probe conformance/libaom.py, which it loads), encodes 3 frames
     of 64x64 through SvtAv1Encoder(device="cpu") and through the CLI
     (python -m svt_av1_psyex_tpu_torch.app.main --device cpu), then finds
     neither svt_av1_psyex_tpu nor jax in sys.modules, and no class of the
@@ -114,6 +116,16 @@ def test_port_process_loads_neither_package():
             and any(b.__module__.split(".")[0] == "svt_av1_psyex_tpu"
                     for b in cls.__mro__))
         assert not subclassing, subclassing
+        names = {{m.__name__ for m in mods}}
+        assert {{"svt_av1_psyex_tpu_torch.ops.int_kernels",
+                 "svt_av1_psyex_tpu_torch.conformance.libaom"}} <= names
+        import torch
+        from svt_av1_psyex_tpu_torch.conformance import libaom
+        from svt_av1_psyex_tpu_torch.ops import int_kernels
+        stats = int_kernels.frame_intra_analysis(
+            torch.full((64, 64), 128, dtype=torch.int32))
+        assert int(stats["sse"][0, 0]) == 0
+        libaom.available()
         from svt_av1_psyex_tpu_torch.api import SvtAv1Encoder
         from svt_av1_psyex_tpu_torch.utils.clips import synth_frame
         from svt_av1_psyex_tpu_torch.utils.y4m import VideoFormat, Y4MWriter

@@ -249,7 +249,7 @@ def test_host_md_inter_frame_uses_port_motion_field():
         assert np.array_equal(m["sad"], want.maps[1][geo]["sad"]), geo
 
 
-def test_loop_restoration_not_ported():
+def test_loop_restoration_on_by_preset():
     """Loop restoration runs in the port: it is on by default at presets
     <= 6 (off above), and enable_restoration=False turns it off."""
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig

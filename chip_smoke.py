@@ -115,13 +115,27 @@ failure raises and the script exits non-zero without a result:
    (phase 6's first, edge-padded), timed with CUDA events: sse, sad and
    pred_dc equal the CPU's, var8x8 within rtol 1e-5, atol 1e-4 (float32
    means of 64 rounded squares).
+11. mesh: the analysis over a (dp, sp) DeviceMesh (svt_av1_psyex_tpu_torch/
+   parallel/), spread over the cards there are (one card: every shard on
+   it), each run against the unsharded run of the same frames. Phase
+   6's clip cut to 4 frames under (2, 2): the keyframe group's analysis
+   rows equal the unsharded rows value for value (17 superblock rows
+   split 9 + 8), then an encode of each: TUs identical. Phase 5's cell
+   under (1, 4) (3 superblock rows per shard), after a short sharded
+   warm-up: TUs and every coded frame's analysis fields identical. In
+   both, each kernel launches once per shard where the unsharded run
+   launches it once (the main path of this phase: the two sharded runs,
+   counts set to 0 before each and read after it). Then
+   parallel.dryrun.dryrun_multichip(4) on the card. fps sharded and
+   unsharded, the distinct cards and the shards on each, launches; dav1d
+   as in phase 4.
 
 Then a JSON line of the kernels ("launches": the counts of the kernel
-runs of phases 7, 8 and 10 summed, "launches_by_path" each of them; fullloop
-"ms"/"plain_ms": its device time summed
-over its launches in one 1080p 16-frame analysis, "bound_ms" the sum of
-those launches' bounds, "max_abs_err": the largest |inverse residual|
-difference against the plain version over every compared block; sad
+runs of phases 7, 8, 10 and 11 summed, "launches_by_path" each of them;
+fullloop "ms"/"plain_ms": its device time summed over its launches in
+one 1080p 16-frame analysis, "bound_ms" the sum of those launches'
+bounds, "max_abs_err": the largest |inverse residual| difference
+against the plain version over every compared block; sad
 "ms"/"plain_ms"/"bound_ms": one launch at one 720p frame's 240
 superblocks, "max_abs_err": the largest difference over every compared
 lattice, 0 when bit-exact; "library_ms" null: no single PyTorch call
@@ -166,6 +180,11 @@ CONFIG3 = dict(w=1920, h=1080, bd=10, frames=9, preset=6, crf=30,
 # the integer analysis tier's frame analysis on one 1080p luma frame,
 # padded to a multiple of its 64x64 blocks
 INTDCT_FRAME = dict(h=1088, blk=64)
+# phase 11, the (dp, sp) layout: 4 frames of phase 6's clip under (2, 2)
+# (17 superblock rows, 9 + 8 over sp), and phase 5's cell under (1, 4)
+# (12 rows, 3 per shard)
+MESH_HD = dict(HD, frames=4, mesh=(2, 2))
+MESH_INTER = dict(INTER, mesh=(1, 4))
 KERNELS = ("fullloop", "sad")
 REPLACES = {"fullloop": "svt_av1_psyex_tpu/ops/pallas/fullloop.py:151",
             "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69"}
@@ -434,15 +453,16 @@ def make_frames(cfg: dict) -> list:
     return [synth_frame(fmt, t) for t in range(cfg["frames"])]
 
 
-def make_encoder(cfg: dict, device, kernels: str):
+def make_encoder(cfg: dict, device, kernels: str, mesh=None):
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
     return Av1Encoder(SequenceConfig(width=cfg["w"], height=cfg["h"]),
-                      preset=cfg["preset"], device=device, kernels=kernels)
+                      preset=cfg["preset"], device=device, kernels=kernels,
+                      mesh=mesh)
 
 
-def encode(frames: list, cfg: dict, device, kernels: str):
-    enc = make_encoder(cfg, device, kernels)
+def encode(frames: list, cfg: dict, device, kernels: str, mesh=None):
+    enc = make_encoder(cfg, device, kernels, mesh)
     t0 = time.perf_counter()
     tus = enc.encode_keyframes(frames, cfg["qindex"])
     return enc, tus, time.perf_counter() - t0
@@ -538,9 +558,10 @@ def phase_slice(device) -> None:
           f"{sum(map(len, tus_k))} bytes", flush=True)
 
 
-def recording_encoder(cfg: dict, device, kernels: str):
-    """The port's encoder for cfg, keeping each coded frame's device MD
-    (whose stats hold the frame's analysis lattice) in `dmds`."""
+def recording_encoder(cfg: dict, device, kernels: str, mesh=None):
+    """The port's encoder for cfg (its analysis sharded over `mesh`, if
+    given), keeping each coded frame's device MD (whose stats hold the
+    frame's analysis lattice) in `dmds`."""
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
     class Recording(Av1Encoder):
@@ -551,19 +572,21 @@ def recording_encoder(cfg: dict, device, kernels: str):
             return st
 
     enc = Recording(SequenceConfig(width=cfg["w"], height=cfg["h"]),
-                    preset=cfg["preset"], device=device, kernels=kernels)
+                    preset=cfg["preset"], device=device, kernels=kernels,
+                    mesh=mesh)
     enc.dmds = []
     return enc
 
 
-def encode_gop(frames: list, gop: int, cfg: dict, device, kernels: str):
+def encode_gop(frames: list, gop: int, cfg: dict, device, kernels: str,
+               mesh=None):
     """A keyframe, then one `gop`-frame random-access mini-GOP. Returns
     (encoder, TUs, display-order recons, seconds, coded-frame TU
     indices)."""
     from svt_av1_psyex_tpu_torch.codec.encoder import encode_plans
     from svt_av1_psyex_tpu_torch.codec.gop import plan_minigop
 
-    enc = recording_encoder(cfg, device, kernels)
+    enc = recording_encoder(cfg, device, kernels, mesh)
     plans = plan_minigop(0, 1, gop, future_slot=1)
     t0 = time.perf_counter()
     tus = [enc.encode_frame(frames[0], cfg["qindex"], force_key=True)]
@@ -765,7 +788,7 @@ def tpl_on_card(frames: list, cfg: dict, device) -> str:
     import numpy as np
     import torch
 
-    from svt_av1_psyex_tpu_torch.codec.md_device import upload_lumas
+    from svt_av1_psyex_tpu_torch.runtime import upload_lumas
     from svt_av1_psyex_tpu_torch.device.intra import qp_row_for
     from svt_av1_psyex_tpu_torch.device.me import _pad64
     from svt_av1_psyex_tpu_torch.device.tpl import STAT_FIELDS, tpl_group_stats
@@ -1197,16 +1220,19 @@ def phase_device_cdef(device, hd: dict, inter: dict) -> None:
 
 @contextmanager
 def recording_int_analysis(out: dict):
-    """Keeps, for the first keyframe analysis (codec.md_device's
-    intra_analysis_batch) and the first inter-frame analysis
-    (inter_analysis), their arguments, their packed result and, for
-    every ops.int_kernels.fullloop_int call made inside them, its
-    arguments and outputs: out["intra"] and out["inter"]."""
-    import svt_av1_psyex_tpu_torch.codec.md_device as MD
+    """Keeps, for the first keyframe analysis (device.intra's
+    intra_analysis_batch, one call a shard of the encoder's (1, 1) mesh)
+    and the first inter-frame analysis (device.inter's inter_analysis),
+    their arguments, their packed result and, for every
+    ops.int_kernels.fullloop_int call made inside them, its arguments
+    and outputs: out["intra"] and out["inter"]."""
+    import svt_av1_psyex_tpu_torch.device.inter as DI
+    import svt_av1_psyex_tpu_torch.device.intra as DA
     import svt_av1_psyex_tpu_torch.ops.int_kernels as IK
 
-    names = {"intra": "intra_analysis_batch", "inter": "inter_analysis"}
-    orig = {kind: getattr(MD, name) for kind, name in names.items()}
+    names = {"intra": (DA, "intra_analysis_batch"),
+             "inter": (DI, "inter_analysis")}
+    orig = {kind: getattr(mod, name) for kind, (mod, name) in names.items()}
     orig_loop = IK.fullloop_int
     active: list = []
 
@@ -1231,14 +1257,14 @@ def recording_int_analysis(out: dict):
                 ((resid, qp6, n, log_scale, bit_depth), res))
         return res
 
-    for kind, name in names.items():
-        setattr(MD, name, wrap(kind))
+    for kind, (mod, name) in names.items():
+        setattr(mod, name, wrap(kind))
     IK.fullloop_int = loop
     try:
         yield
     finally:
-        for kind, name in names.items():
-            setattr(MD, name, orig[kind])
+        for kind, (mod, name) in names.items():
+            setattr(mod, name, orig[kind])
         IK.fullloop_int = orig_loop
 
 
@@ -1404,6 +1430,106 @@ def phase_intdct(device, inter: dict, hd: dict) -> dict:
     return launches
 
 
+def counted(fn):
+    """fn() with both kernels' launch counts set to 0 just before it;
+    returns its result and the counts read just after it."""
+    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
+    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
+
+    cuda_fullloop.launches = cuda_sad.launches = 0
+    out = fn()
+    return out, {"fullloop": cuda_fullloop.launches,
+                 "sad": cuda_sad.launches}
+
+
+def mesh_launches(tag: str, sharded: dict, single: dict,
+                  shards: int) -> None:
+    """The sharded run launches each kernel once per shard where the
+    unsharded run launches it once."""
+    for name in KERNELS:
+        check(sharded[name] == single[name] * shards,
+              f"mesh: {tag}: {name} launched {sharded[name]} times "
+              f"sharded, {single[name]} unsharded, {shards} shards")
+    check(sharded["fullloop"] > 0, f"mesh: {tag}: no fullloop launch")
+
+
+def phase_mesh(device) -> dict:
+    """Phase 11: the analysis over a (dp, sp) mesh against the unsharded
+    run: phase 6's clip (4 frames) under (2, 2), phase 5's cell under
+    (1, 4), then dryrun_multichip(4). Returns the launch counts of the
+    two sharded runs (the main path of this phase)."""
+    import numpy as np
+
+    from svt_av1_psyex_tpu_torch.parallel.dryrun import dryrun_multichip
+    from svt_av1_psyex_tpu_torch.parallel.mesh import DeviceMesh, shard_grid
+
+    cfg = MESH_HD
+    frames = make_frames(cfg)
+    mesh = DeviceMesh.spread(cfg["mesh"], device)
+    shards = len(shard_grid(cfg["frames"], -(-cfg["h"] // 64), mesh))
+    probe = make_encoder(cfg, device, "hand")
+    rows_one = probe.analyze_keyframes(frames, cfg["qindex"])
+    rows_mesh = probe.analyze_keyframes(frames, cfg["qindex"], mesh)
+    ndiff = int(np.sum(rows_one != rows_mesh))
+    print(f"mesh: 1080p analysis rows, {cfg['mesh']} vs unsharded: {ndiff} "
+          f"of {rows_one.size} values differ (largest |diff| "
+          f"{float(np.max(np.abs(rows_one - rows_mesh)))})", flush=True)
+    check(ndiff == 0, "mesh: the sharded keyframe analysis rows differ")
+    (_, tus_1, dt_1), l_1 = counted(
+        lambda: encode(frames, cfg, device, "hand"))
+    (enc_m, tus_m, dt_m), l_m = counted(
+        lambda: encode(frames, cfg, device, "hand", mesh))
+    diff = [i for i, (a, b) in enumerate(zip(tus_m, tus_1)) if a != b]
+    check(len(tus_m) == cfg["frames"] and not diff,
+          f"mesh: 1080p TUs {diff} differ sharded vs unsharded")
+    mesh_launches("1080p", l_m, l_1, shards)
+    gate = dav1d_check("mesh_hd", enc_m, tus_m, cfg)
+    print(f"mesh: 1080p {cfg['frames']} keyframes, p{cfg['preset']}, "
+          f"q{cfg['qindex']}, mesh {cfg['mesh']} (dp, sp) on "
+          f"{len(mesh.placement())} distinct card(s) {mesh.placement()}, "
+          f"{shards} shards: sharded {cfg['frames'] / dt_m:.3f} fps "
+          f"({stages(enc_m)}), unsharded {cfg['frames'] / dt_1:.3f} fps; "
+          f"TUs identical; launches sharded {l_m}, unsharded {l_1} "
+          f"(x {shards}); {gate}", flush=True)
+
+    cfg = MESH_INTER
+    gframes = make_frames(cfg)
+    mesh4 = DeviceMesh.spread(cfg["mesh"], device)
+    shards4 = len(shard_grid(1, -(-cfg["h"] // 64), mesh4))
+    encode_gop(gframes, cfg["warmup_gop"], cfg, device, "hand", mesh4)
+    (enc_1, gtus_1, _, gdt_1, coded), gl_1 = counted(
+        lambda: encode_gop(gframes, cfg["gop"], cfg, device, "hand"))
+    (enc_g, gtus_m, grec_m, gdt_m, _), gl_m = counted(
+        lambda: encode_gop(gframes, cfg["gop"], cfg, device, "hand", mesh4))
+    diff = [i for i, (a, b) in enumerate(zip(gtus_m, gtus_1)) if a != b]
+    check(len(gtus_m) == len(gtus_1) and not diff,
+          f"mesh: 720p TUs {diff} differ sharded vs unsharded")
+    rows_differ = sum(
+        not np.array_equal(dm.stats[blk][k], d1.stats[blk][k])
+        for dm, d1 in zip(enc_g.dmds, enc_1.dmds) for blk in d1.DEPTHS
+        for k in d1.stats[blk])
+    check(rows_differ == 0 and len(enc_g.dmds) == len(coded),
+          f"mesh: 720p analysis fields differ sharded vs unsharded "
+          f"({rows_differ})")
+    mesh_launches("720p", gl_m, gl_1, shards4)
+    ggate = dav1d_check("mesh_inter", enc_g, gtus_m, cfg, recons=grec_m)
+    print(f"mesh: 720p keyframe + {cfg['gop']}-frame mini-GOP "
+          f"({len(gtus_m)} TUs, {len(coded)} coded), p{cfg['preset']}, "
+          f"q{cfg['qindex']}, mesh {cfg['mesh']} on "
+          f"{len(mesh4.placement())} distinct card(s), {shards4} shards "
+          f"per frame: sharded {cfg['frames'] / gdt_m:.3f} fps, unsharded "
+          f"{cfg['frames'] / gdt_1:.3f} fps; TUs and every coded frame's "
+          f"analysis fields identical; launches sharded {gl_m}, unsharded "
+          f"{gl_1} (x {shards4}); {ggate}", flush=True)
+
+    summary, dl = counted(lambda: dryrun_multichip(4, device="cuda"))
+    print(f"mesh: dryrun_multichip(4) passed: mesh {summary['mesh']} on "
+          f"{len(summary['placement'])} distinct card(s) "
+          f"{summary['placement']}; launches (sharded and unsharded "
+          f"encodes) {dl}", flush=True)
+    return {name: l_m[name] + gl_m[name] for name in KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -1452,6 +1578,7 @@ def main() -> int:
     timed("phase 9 (device CDEF)", phase_device_cdef, device, hd, inter)
     by_path["intdct"] = timed("phase 10 (intdct)", phase_intdct, device,
                               inter, hd)
+    by_path["mesh"] = timed("phase 11 (mesh)", phase_mesh, device)
     check(not any(m.split(".")[0] in ("jax", "svt_av1_psyex_tpu")
                   for m in sys.modules), "jax or the JAX package was imported")
 

@@ -38,7 +38,7 @@ from ..bitstream.headers import (
 from ..bitstream.obu import ObuType, temporal_delimiter, wrap_obu
 from ..bitstream.tables import FrameCdfs, scan_table
 from ..bitstream.tile_writer import LeafBlock, PartitionNode, TileWriter
-from ..device.intra import DEVICE_MODES, intra_analysis_batch, qp_row_for
+from ..device.intra import DEVICE_MODES, intra_analysis_sharded, qp_row_for
 from ..native import cdefc
 from ..ops import intra as intra_ops
 from ..ops.quant import build_plane_quant, quantize_b
@@ -57,8 +57,9 @@ from .constants import (
     subsize,
     tx_size_sqr_up,
 )
+from ..parallel.mesh import DeviceMesh
 from ..runtime import check_kernels, resolve_device
-from .md_device import DeviceIntraMD, upload_lumas
+from .md_device import DeviceIntraMD
 from .rd import cdf_costs, compute_rdmult
 
 # tx scale (spec av1_get_tx_scale): 0 for <=16, 1 for 32-class, 2 for 64-class
@@ -103,7 +104,18 @@ class Av1Encoder:
     is none raises). `kernels="plain"` runs the plain PyTorch version of
     every kernel instead of the hand kernel, to compare the two on the
     card; the default "hand" launches the CUDA kernels on a CUDA device
-    (on the CPU there are none, and the plain versions run)."""
+    (on the CPU there are none, and the plain versions run).
+
+    `mesh` (a parallel.mesh.DeviceMesh whose first device is `device`,
+    also settable as enc.mesh; by default the (1, 1) mesh on `device`)
+    shards the device mode-decision analysis: a keyframe group's frames
+    over its dp axis and every analysis' superblock rows over its sp
+    axis. TPL, temporal filtering, CDEF and loop restoration stay on
+    `device`. On the CPU the streams equal the unsharded encode's byte
+    for byte at any shard size. On a CUDA device they do wherever the
+    analysis rows do: at a few superblocks a shard, cuBLAS and torch's
+    reductions may sum a block's float terms in another order, and a J
+    that moves in its last bits may move a decision (parallel/mesh.py)."""
 
     CANDIDATE_MODES = [IntraMode.DC, IntraMode.V, IntraMode.H,
                        IntraMode.SMOOTH, IntraMode.PAETH]
@@ -125,9 +137,10 @@ class Av1Encoder:
                  enable_mfmv: bool = True,
                  screen_content_mode: int = 0, complex_hvs: int = 0,
                  hbd_mds: int = 0, superres_denom: int = 8, *,
-                 device="cuda", kernels: str = "hand"):
+                 device="cuda", kernels: str = "hand", mesh=None):
         self.device = resolve_device(device)
         self.kernels = check_kernels(kernels)
+        self.mesh = self._check_mesh(mesh)
         self.stage_seconds: dict = {}
         self.seq = seq
         self.preset = preset
@@ -781,11 +794,12 @@ class Av1Encoder:
             if use_device_inter:
                 dmd = DeviceInterMD(md, seq, fr, sb_qmap,
                                     ref_names=sorted(ref_planes),
-                                    device=self.device, kernels=self.kernels)
+                                    device=self.device, kernels=self.kernels,
+                                    mesh=self.mesh)
                 dmd.analyze_dispatch()
             else:
                 dmd = DeviceIntraMD(md, seq, fr, sb_qmap, device=self.device,
-                                    kernels=self.kernels)
+                                    kernels=self.kernels, mesh=self.mesh)
                 if _analysis_row is None:
                     dmd.analyze_dispatch()
         return {"fr": fr, "tw": tw, "cdfs": cdfs, "pctx": pctx, "md": md,
@@ -1318,12 +1332,24 @@ class Av1Encoder:
         return DeviceIntraMD.depths_for(
             self._min_partition_bsize, self.mi_rows, self.mi_cols)
 
-    def analyze_keyframes(self, frames: list, base_q_idx: int
-                          ) -> np.ndarray:
+    def _check_mesh(self, mesh) -> DeviceMesh:
+        """`mesh`, which must start on the encoder's device, or for None
+        the (1, 1) mesh there (the unsharded analysis)."""
+        if mesh is None:
+            return DeviceMesh.single(self.device)
+        if mesh.first != self.device:
+            raise ValueError(f"the mesh starts on {mesh.first}, the "
+                             f"encoder runs on {self.device}")
+        return mesh
+
+    def analyze_keyframes(self, frames: list, base_q_idx: int,
+                          mesh=None) -> np.ndarray:
         """The batched device analysis of a keyframe group: (F, P) packed
         (J, mode) rows on the host, as device.intra.intra_analysis_batch
         returns them (unpack with unpack_rd_analysis at
-        self.keyframe_depths())."""
+        self.keyframe_depths()). The frames go over the dp axis of `mesh`
+        (by default self.mesh) and the superblock rows over its sp axis
+        (device.intra.intra_analysis_sharded)."""
         bd = self.seq.bit_depth
         lumas = np.stack([
             DeviceIntraMD.pad_src(self._pad_plane(
@@ -1345,26 +1371,32 @@ class Av1Encoder:
             [compute_rdmult(q0, bd), sk[0], sk[1]],
             mode_rate, [psy_fixed]]).astype(np.int32)
         n = len(frames)
-        packed = intra_analysis_batch(
-            upload_lumas(lumas, bd, self.device),
-            np.broadcast_to(qp, (n, qp.size)),
-            np.broadcast_to(rd, (n, rd.size)),
-            depths=self.keyframe_depths(), bit_depth=bd,
-            psy=psy_fixed > 0, kernels=self.kernels)
-        return packed.cpu().numpy()
+        qps = np.broadcast_to(qp, (n, qp.size))
+        rds = np.broadcast_to(rd, (n, rd.size))
+        return intra_analysis_sharded(
+            lumas, qps, rds,
+            self._check_mesh(self.mesh if mesh is None else mesh),
+            depths=self.keyframe_depths(), bit_depth=bd, psy=psy_fixed > 0,
+            kernels=self.kernels).numpy()
 
-    def encode_keyframes(self, frames: list, base_q_idx: int = 80
-                         ) -> list[bytes]:
+    def encode_keyframes(self, frames: list, base_q_idx: int = 80,
+                         mesh=None) -> list[bytes]:
         """Group-encode consecutive keyframes: ONE batched device
         analysis serves the whole group (frames folded into the block
         batch), then the conformant commit, in-loop filters and entropy
-        coding run per frame on the host. frames: per frame, the list of
-        planes (numpy arrays). Sets self.recons to each frame's
-        reconstruction (what a decoder must output) and
-        self.stage_seconds to wall times: "device_analysis" (upload,
-        lattice, fetch), "frames" (per-frame set-up, partition DP,
-        commit, DLF), "cdef", "finalize" (entropy coding, packing) and
-        "host", the sum of the last three."""
+        coding run per frame on the host. That analysis is sharded over
+        `mesh` (analyze_keyframes), by default over self.mesh: unlike the
+        JAX package's, whose mesh=None is unsharded, the encoder's mesh
+        holds for every analysis it runs. A group of one frame, or one
+        the device analysis cannot take, is encoded frame by frame, each
+        analysis over self.mesh. frames: per frame, the list of planes
+        (numpy arrays). Sets self.recons to each frame's reconstruction
+        (what a decoder must output) and self.stage_seconds to wall
+        times: "device_analysis" (upload, lattice, fetch), "frames"
+        (per-frame set-up, partition DP, commit, DLF), "cdef", "finalize"
+        (entropy coding, packing) and "host", the sum of the last
+        three."""
+        mesh = self._check_mesh(self.mesh if mesh is None else mesh)
         t0 = time.perf_counter()
         self.recons = []
         if not self._device_md_precheck() or len(frames) <= 1:
@@ -1377,7 +1409,7 @@ class Av1Encoder:
                                   "cdef": 0.0, "finalize": 0.0,
                                   "host": host}
             return tus
-        rows = self.analyze_keyframes(frames, base_q_idx)
+        rows = self.analyze_keyframes(frames, base_q_idx, mesh)
         t1 = time.perf_counter()
         bd = self.seq.bit_depth
         group: list = []

@@ -1,12 +1,13 @@
 """Device-backed mode decision: host argmin + conformant commit.
 
 The split (SURVEY §7 "Key design decision"):
-  * device — `device.intra.intra_analysis_batch` (key frames) and
-    `device.inter.inter_analysis` (inter frames) evaluate every block of
-    the frame at every depth in one batched torch call on the device the
-    caller names (open-loop prediction, float32 DCTs, analysis quantizer,
-    calibrated rate proxy), through the hand kernels or, with
-    kernels="plain", their plain versions;
+  * device — `device.intra.intra_analysis_sharded` (key frames) and
+    `device.inter.inter_analysis_sharded` (inter frames) evaluate every
+    block of the frame at every depth in one batched torch call a shard
+    of the caller's mesh (by default one shard, the whole frame, on the
+    device the caller names): open-loop prediction, float32 DCTs,
+    analysis quantizer, calibrated rate proxy, through the hand kernels
+    or, with kernels="plain", their plain versions;
   * host — this module turns those cost lattices into a partition tree
     (quadtree argmin, `pick`) and then runs the *conformant* commit pass
     in coding order: recon-neighbor prediction, exact quantize, exact
@@ -23,7 +24,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from ..bitstream.tile_writer import LeafBlock, PartitionNode
 from .constants import (
@@ -42,15 +42,16 @@ from ..device.inter import (
     CAND_COMP_NEW,
     CAND_COMP_ZERO,
     CAND_INTER0,
-    inter_analysis,
+    inter_analysis_sharded,
     unpack_inter_analysis,
 )
 from ..device.intra import (
     DEVICE_MODES,
-    intra_analysis_batch,
+    intra_analysis_sharded,
     qp_row_for,
     unpack_rd_analysis,
 )
+from ..parallel.mesh import DeviceMesh
 from ..runtime import check_kernels, resolve_device
 from .rd import cdf_costs, compute_rdmult
 
@@ -79,14 +80,6 @@ def _mk_commit_ctx(dmd):
         return False
     return native_commit.CommitCtx(dmd.seq.bit_depth)
 
-
-def upload_lumas(lumas: np.ndarray, bit_depth: int,
-                 device: torch.device) -> torch.Tensor:
-    """Luma planes ((H, W) or (F, H, W)) -> tensor on `device`, in a
-    narrow type: uint8 at 8 bits, int16 above (torch's uint16 has few
-    ops). The lattices cast to int32 on the device."""
-    lum_dt = np.uint8 if bit_depth == 8 else np.int16
-    return torch.from_numpy(np.ascontiguousarray(lumas, lum_dt)).to(device)
 
 # partition-cdf ctx row at neutral neighbors: ctx = bsl_ctx * 4
 _BSL_CTX = {8: 0, 16: 1, 32: 2, 64: 3}
@@ -171,9 +164,12 @@ class DeviceIntraMD:
     _rd_cache: dict = {}
 
     def __init__(self, md, seq, fr, sb_qmap=None, *, device="cuda",
-                 kernels: str = "hand"):
+                 kernels: str = "hand", mesh=None):
         self.device = resolve_device(device)
         self.kernels = check_kernels(kernels)
+        # the analysis shards superblock rows over the mesh's sp axis
+        # (None: the (1, 1) mesh, one call on self.device)
+        self.mesh = mesh or DeviceMesh.single(self.device)
         self.md = md
         self.seq = seq
         self.fr = fr
@@ -228,26 +224,27 @@ class DeviceIntraMD:
 
     def analyze_dispatch(self) -> None:
         """Queue the device analysis of this frame without waiting for it
-        (CUDA runs it asynchronously); analyze() fetches the result."""
+        (CUDA runs it asynchronously); analyze() fetches the result. Each
+        sp shard's rows are queued on its device."""
         src = self.pad_src(self.md.pctx[0].src)
         self._hp, self._wp = src.shape
         a_bd = 8 if _hbd8(self) else self.seq.bit_depth
         if a_bd != self.seq.bit_depth:
             src = src >> (self.seq.bit_depth - 8)
         qp = qp_row_for(self.fr.base_q_idx, self.fr.delta_q_y_dc, 0, a_bd)
-        self._pending = intra_analysis_batch(
-            upload_lumas(src[None], a_bd, self.device), qp[None],
-            self.rd_row()[None], depths=self.DEPTHS, bit_depth=a_bd,
-            psy=self.psy_fixed > 0, kernels=self.kernels)
+        self._pending = intra_analysis_sharded(
+            src[None], qp[None], self.rd_row()[None], self.mesh,
+            depths=self.DEPTHS, bit_depth=a_bd, psy=self.psy_fixed > 0,
+            kernels=self.kernels)
 
     def analyze(self, packed_row: np.ndarray | None = None) -> None:
         """Pull the device (J, mode) lattice. `packed_row` = precomputed
-        row from intra_analysis_batch (group path); None = fetch the
+        row from intra_analysis_sharded (group path); None = fetch the
         dispatched call (dispatching now if needed)."""
         if packed_row is None:
             if self._pending is None:
                 self.analyze_dispatch()
-            packed_row = self._pending[0].cpu().numpy()
+            packed_row = self._pending.numpy()[0]
             self._pending = None
             hp, wp = self._hp, self._wp
         else:
@@ -568,9 +565,10 @@ class DeviceInterMD(DeviceIntraMD):
     argmin + exact syntax)."""
 
     def __init__(self, md, seq, fr, sb_qmap=None, ref_names=None, *,
-                 device="cuda", kernels: str = "hand"):
+                 device="cuda", kernels: str = "hand", mesh=None):
         self.device = resolve_device(device)
         self.kernels = check_kernels(kernels)
+        self.mesh = mesh or DeviceMesh.single(self.device)  # as above
         self.md = md
         self.seq = seq
         self.fr = fr
@@ -657,7 +655,8 @@ class DeviceInterMD(DeviceIntraMD):
 
     def analyze_dispatch(self) -> None:
         """Queue the fused inter lattice of this frame without waiting for
-        it; analyze() fetches the result."""
+        it; analyze() fetches the result. Each sp shard's rows (and its
+        reference slabs) are queued on its device."""
         src = self.pad_src(self.md.pctx[0].src)
         hp, wp = src.shape
         self._hp, self._wp = hp, wp
@@ -675,18 +674,16 @@ class DeviceInterMD(DeviceIntraMD):
             src = src >> (self.seq.bit_depth - 8)
             refs = refs >> (self.seq.bit_depth - 8)
         qp = qp_row_for(self.fr.base_q_idx, self.fr.delta_q_y_dc, 0, a_bd)
-        self._pending = inter_analysis(
-            upload_lumas(src, a_bd, self.device),
-            upload_lumas(refs, a_bd, self.device), qp, self.rd_row(),
-            depths=self.DEPTHS, bit_depth=a_bd, psy=self.psy_fixed > 0,
-            kernels=self.kernels)
+        self._pending = inter_analysis_sharded(
+            src, refs, qp, self.rd_row(), self.mesh, depths=self.DEPTHS,
+            bit_depth=a_bd, psy=self.psy_fixed > 0, kernels=self.kernels)
 
     def analyze(self, packed_row: np.ndarray | None = None) -> None:
         """Pull the packed inter lattice (dispatching now if needed)."""
         if packed_row is None:
             if self._pending is None:
                 self.analyze_dispatch()
-            packed_row = self._pending.cpu().numpy()
+            packed_row = self._pending.numpy()[0]
             self._pending = None
         self.stats = unpack_inter_analysis(packed_row, self._hp, self._wp,
                                            self.DEPTHS)

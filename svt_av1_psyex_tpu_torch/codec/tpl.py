@@ -29,8 +29,7 @@ from ..bitstream.tables import dc_q
 from ..device.intra import qp_row_for
 from ..device.me import _pad64
 from ..device.tpl import tpl_group_stats
-from ..runtime import resolve_device
-from .md_device import upload_lumas
+from ..runtime import resolve_device, upload_lumas
 from .rd import compute_rdmult
 
 BLK = 16

@@ -31,6 +31,13 @@ base cost in rd_row, so those candidates never win. Unlike the JAX
 package, the refs are not padded to a fixed count: padding only avoids
 recompiles, and a padded slot (a copy of ref 0 at a prohibitive cost)
 can never win.
+
+inter_analysis_sharded runs the analysis with the frame's superblock
+rows over a mesh's sp axis (parallel/mesh.py): each shard gets its rows
+of src, the source row above them (the intra candidates' halo) and a
+slab of each reference that reaches device.me.SLAB rows above and below
+(the motion search's and the predictions' halo); its rows equal
+inter_analysis's bit for bit.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import SB, DeviceMesh, ShardedRows, shard_grid
 from ..params import reference_constants
+from ..runtime import upload_lumas
 from .intra import (
     N_MODES,
     _analyze_depth,
@@ -47,7 +56,7 @@ from .intra import (
     psy_energy,
     qp6_for,
 )
-from .me import fullpel_lattice, geometry_best
+from .me import SLAB, Window, fullpel_lattice, geometry_best
 
 # MV-rate proxy (1/512-bit units): base covers joint/sign/class symbols;
 # the log2 term tracks the class/offset growth per component, against
@@ -61,16 +70,20 @@ CAND_COMP_ZERO = 41
 
 
 def _mc_tiles(ref: torch.Tensor, mv_y: torch.Tensor, mv_x: torch.Tensor,
-              blk: int) -> torch.Tensor:
+              blk: int, win: Window | None = None) -> torch.Tensor:
     """Full-pel MC prediction tiles: (nby, nbx) MV grids -> (B, blk, blk)
-    gathered with spec sample clamping."""
-    h, w = ref.shape
+    gathered with spec sample clamping (at the frame's edges: `win`
+    places the blocks and the reference slab in the frame; by default
+    ref is the whole frame)."""
+    w = ref.shape[1]
+    win = win or Window(0, 0, ref.shape[0])
     nby, nbx = mv_y.shape
     dev = ref.device
-    y0 = (torch.arange(nby, device=dev)[:, None] * blk + mv_y).reshape(-1)
+    y0 = (torch.arange(nby, device=dev)[:, None] * blk + win.row0
+          + mv_y).reshape(-1)
     x0 = (torch.arange(nbx, device=dev)[None, :] * blk + mv_x).reshape(-1)
     span = torch.arange(blk, device=dev)
-    rows = (y0[:, None] + span[None, :]).clamp(0, h - 1)
+    rows = win.ref_rows(y0[:, None] + span[None, :])
     cols = (x0[:, None] + span[None, :]).clamp(0, w - 1)
     return ref[rows[:, :, None], cols[:, None, :]]
 
@@ -124,7 +137,8 @@ def _flat(a: torch.Tensor) -> torch.Tensor:
 
 
 def _inter_depth(tiles, ref, mvs, blk: int, qp_row, rd_row, ri: int,
-                 bit_depth: int, sb_mv, psy: bool, kernels: str) -> list:
+                 bit_depth: int, sb_mv, psy: bool, kernels: str,
+                 win: Window) -> list:
     """Candidates of one (depth, ref): NEWMV at the ME MV and the zero
     MV. tiles: (B, blk, blk) source; mvs: (mv_y, mv_x) grids. Returns
     two (j, cand, mv_y, mv_x, mv_y1, mv_x1) tuples of flat f32 rows."""
@@ -138,7 +152,7 @@ def _inter_depth(tiles, ref, mvs, blk: int, qp_row, rd_row, ri: int,
             (CAND_INTER0 + 2 * ri, mv_y, mv_x, base + mv_rate.reshape(-1)),
             (CAND_INTER0 + 2 * ri + 1, zeros, zeros,
              gbase.expand(mv_y.numel()))):
-        pred = _mc_tiles(ref, my, mx, blk)
+        pred = _mc_tiles(ref, my, mx, blk, win)
         j = _cand_j(tiles, pred, crate, blk, qp_row, rd_row, bit_depth, psy,
                     kernels)
         z = torch.zeros_like(j)
@@ -148,7 +162,7 @@ def _inter_depth(tiles, ref, mvs, blk: int, qp_row, rd_row, ri: int,
 
 def _comp_depth(tiles, refs, geo0, geo1, blk: int, qp_row, rd_row,
                 bit_depth: int, sb_mv0, sb_mv1, psy: bool,
-                kernels: str) -> list:
+                kernels: str, win: Window) -> list:
     """Compound (ref0, ref1) candidates at one depth: NEW_NEWMV at the
     two per-ref ME MVs, and the zero pair (GLOBAL_GLOBALMV). Prediction
     is the rounded average, the analysis stand-in for the spec's
@@ -166,8 +180,8 @@ def _comp_depth(tiles, refs, geo0, geo1, blk: int, qp_row, rd_row,
              base + mv_rate.reshape(-1)),
             (CAND_COMP_ZERO, zeros, zeros, zeros, zeros,
              gbase.expand(mv_y0.numel()))):
-        pred = (_mc_tiles(refs[0], my0, mx0, blk)
-                + _mc_tiles(refs[1], my1, mx1, blk) + 1) >> 1
+        pred = (_mc_tiles(refs[0], my0, mx0, blk, win)
+                + _mc_tiles(refs[1], my1, mx1, blk, win) + 1) >> 1
         j = _cand_j(tiles, pred, crate, blk, qp_row, rd_row, bit_depth, psy,
                     kernels)
         out.append((j, torch.full_like(j, cand), _flat(my0), _flat(mx0),
@@ -178,9 +192,15 @@ def _comp_depth(tiles, refs, geo0, geo1, blk: int, qp_row, rd_row,
 def inter_analysis(src: torch.Tensor, refs: torch.Tensor,
                    qp_row: np.ndarray, rd_row: np.ndarray,
                    depths: tuple = (64, 32, 16, 8), bit_depth: int = 8,
-                   psy: bool = False, kernels: str = "hand") -> torch.Tensor:
+                   psy: bool = False, kernels: str = "hand",
+                   above: torch.Tensor | None = None,
+                   win: Window | None = None) -> torch.Tensor:
     """src (H, W) int tensor, refs (R, H, W) int tensor on the analysis
-    device, H/W multiples of 64.
+    device, H/W multiples of 64. For a shard (inter_analysis_sharded):
+    src holds its superblock rows, `above` (W,) the source row above
+    them, refs the reference slabs, and `win` says where src and the
+    slabs sit in the frame (device.me.Window); by default src and refs
+    are the whole frame.
 
     qp_row: (10,) luma quantizer row (device.intra.qp_row_for).
     rd_row: (3 + N_MODES + 18 + 1,) int32, 1/512-bit costs:
@@ -199,16 +219,19 @@ def inter_analysis(src: torch.Tensor, refs: torch.Tensor,
     candidates, zero otherwise."""
     src = src.to(torch.int32)
     refs = refs.to(torch.int32)
+    if above is not None:
+        above = above.to(torch.int32)[None]
     maxpix = (1 << bit_depth) - 1
     rd = torch.as_tensor(np.ascontiguousarray(rd_row, np.int32),
                          device=src.device)
     h, w = src.shape
     nby, nbx = h // 64, w // 64
+    win = win or Window(0, 0, h)
 
     # per-ref full-pel lattices + per-depth square MVs
     per_ref = []
     for ri in range(refs.shape[0]):
-        lat = fullpel_lattice(src, refs[ri], maxpix, kernels)
+        lat = fullpel_lattice(src, refs[ri], maxpix, kernels, win)
         geo = {}
         for blk in depths:
             mv_y, mv_x, _ = geometry_best(*lat, blk, blk)
@@ -227,7 +250,7 @@ def inter_analysis(src: torch.Tensor, refs: torch.Tensor,
         tiles = _extract_blocks(src[None], blk)
         # intra candidates (the intra analysis' RD reduction, one frame)
         j_intra, mode = _analyze_depth(src[None], blk, qp_row[None], rd[None],
-                                       bit_depth, psy, kernels)
+                                       bit_depth, psy, kernels, above)
         z = torch.zeros_like(j_intra[0])
         cands = [(j_intra[0], mode[0], z, z, z, z)]
         for ri in range(refs.shape[0]):
@@ -235,13 +258,13 @@ def inter_analysis(src: torch.Tensor, refs: torch.Tensor,
                 else per_ref[ri][blk]
             cands.extend(_inter_depth(tiles, refs[ri], per_ref[ri][blk], blk,
                                       qp_row, rd, ri, bit_depth, sb_mv, psy,
-                                      kernels))
+                                      kernels, win))
         if refs.shape[0] >= 2:
             sb0 = per_ref[0][64] if 64 in per_ref[0] else per_ref[0][blk]
             sb1 = per_ref[1][64] if 64 in per_ref[1] else per_ref[1][blk]
             cands.extend(_comp_depth(tiles, refs, per_ref[0][blk],
                                      per_ref[1][blk], blk, qp_row, rd,
-                                     bit_depth, sb0, sb1, psy, kernels))
+                                     bit_depth, sb0, sb1, psy, kernels, win))
         js = torch.stack([c[0] for c in cands])               # (C, B)
         # argmin keeps the first (lowest) candidate on ties, as jnp.argmin
         sel = torch.argmin(js, dim=0)[None]
@@ -252,6 +275,35 @@ def inter_analysis(src: torch.Tensor, refs: torch.Tensor,
 
 
 FIELDS = ("j", "cand", "mv_y", "mv_x", "mv_y1", "mv_x1")
+
+
+def inter_analysis_sharded(src: np.ndarray, refs: np.ndarray,
+                           qp_row: np.ndarray, rd_row: np.ndarray,
+                           mesh: DeviceMesh,
+                           depths: tuple = (64, 32, 16, 8),
+                           bit_depth: int = 8, psy: bool = False,
+                           kernels: str = "hand") -> ShardedRows:
+    """inter_analysis with the superblock rows of the frame over the sp
+    axis of `mesh` (on its first dp row; uneven splits allowed). src
+    (H, W) and refs (R, H, W) host planes, H and W multiples of 64. Each
+    shard uploads its rows of src, the row above them and its reference
+    slabs to its device and is dispatched before any is fetched. Returns
+    the pending shards; numpy()[0] is inter_analysis's row."""
+    hp, wp = src.shape
+    shards = []
+    for dev, _, (r0, r1) in shard_grid(1, hp // SB, mesh):
+        y0, y1 = r0 * SB, r1 * SB
+        a0 = max(y0 - 1, 0)
+        s0, s1 = max(y0 - SLAB, 0), min(y1 + SLAB, hp)
+        planes = upload_lumas(src[a0:y1], bit_depth, dev)
+        out = inter_analysis(
+            planes[y0 - a0:], upload_lumas(refs[:, s0:s1], bit_depth, dev),
+            qp_row, rd_row, depths=depths, bit_depth=bit_depth, psy=psy,
+            kernels=kernels, above=planes[0] if y0 else None,
+            win=Window(y0, s0, hp))
+        shards.append(((0, 1), (r0, r1), out[None]))
+    return ShardedRows(shards, [(SB // blk, wp // blk) for blk in depths
+                                for _ in FIELDS], 1, hp // SB)
 
 
 def unpack_inter_analysis(packed: np.ndarray, hp: int, wp: int,

@@ -15,6 +15,11 @@ two float32 matmuls per transform, as in the reference. With
 SVT_TPU_INTDCT=1 every block size goes through the exact integer
 networks of ops/int_kernels.py instead, and neither of those float
 chains runs (analysis_loop), as in the reference.
+
+intra_analysis_sharded runs the same analysis over a (dp, sp) mesh
+(parallel/mesh.py): frames over dp, superblock rows over sp, each shard
+with the source row above its rows (a 1-row halo) for its top blocks'
+neighbours; its rows equal intra_analysis_batch's bit for bit.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ import torch
 
 from ..ops import int_kernels
 from ..ops.fullloop_ref import fullloop_ref
+from ..parallel.mesh import SB, DeviceMesh, ShardedRows, shard_grid
 from ..params import reference_constants
-from ..runtime import fullloop_impl
+from ..runtime import fullloop_impl, upload_lumas
 
 # mode order of the device candidate lattice (IntraMode values)
 DEVICE_MODES = (0, 1, 2, 9, 10, 11, 12)  # DC V H SMOOTH SMOOTH_V SMOOTH_H PAETH
@@ -90,13 +96,17 @@ def _predict_modes(tiles, above, left, tl, blk: int,
     ]).to(torch.int32)
 
 
-def _block_neighbors(lumas: torch.Tensor, blk: int):
+def _block_neighbors(lumas: torch.Tensor, blk: int,
+                     above: torch.Tensor | None = None):
     """Source (open-loop) neighbours of every blk-aligned block of every
     frame, edge-replicated at frame borders. lumas (F, H, W) ->
-    above/left (F*nby*nbx, blk), tl (F*nby*nbx,)."""
+    above/left (F*nby*nbx, blk), tl (F*nby*nbx,). `above` (F, W): the
+    source row above lumas' first row, for a shard that does not start
+    at the frame's top (None: lumas starts there)."""
     f, h, w = lumas.shape
     nby, nbx = h // blk, w // blk
-    pad = torch.cat([lumas[:, :1], lumas], dim=1)
+    top = lumas[:, :1] if above is None else above[:, None]
+    pad = torch.cat([top, lumas], dim=1)
     pad = torch.cat([pad[:, :, :1], pad], dim=2)           # (F, H+1, W+1)
     above = pad[:, 0:h:blk, 1:].reshape(f, nby, nbx, blk).reshape(-1, blk)
     left = (pad[:, 1:, 0:w:blk].reshape(f, nby, blk, nbx)
@@ -106,10 +116,14 @@ def _block_neighbors(lumas: torch.Tensor, blk: int):
 
 
 def _extract_blocks(lumas: torch.Tensor, blk: int) -> torch.Tensor:
-    """(F, H, W) -> (F*nby*nbx, blk, blk) in frame, raster order."""
+    """(F, H, W) -> (F*nby*nbx, blk, blk) in frame, raster order,
+    contiguous: with one row of blocks the reshape would be a strided
+    view, and the float reductions over a block would then run in
+    another order than for a taller plane (a one-row shard must give
+    the whole frame's sums)."""
     f, h, w = lumas.shape
     t = lumas.reshape(f, h // blk, blk, w // blk, blk).transpose(2, 3)
-    return t.reshape(-1, blk, blk)
+    return t.reshape(-1, blk, blk).contiguous()
 
 
 def psy_energy(x: torch.Tensor, blk: int, had: torch.Tensor) -> torch.Tensor:
@@ -141,14 +155,15 @@ def qp6_for(qp_row: np.ndarray, log_scale: int) -> np.ndarray:
 
 def _analyze_depth(lumas: torch.Tensor, blk: int, qp_rows: np.ndarray,
                    rd_rows: torch.Tensor, bit_depth: int, psy: bool,
-                   kernels: str):
+                   kernels: str, above: torch.Tensor | None = None):
     """All blocks of one depth of every frame: -> (jbest, mode), both
     (F, nby*nbx) f32. With psy, the SA8D energy delta (scaled by
-    rd_row[-1]/256) is added to the coded and skip distortions."""
+    rd_row[-1]/256) is added to the coded and skip distortions. `above`:
+    as _block_neighbors takes it."""
     f = lumas.shape[0]
     consts = reference_constants(lumas.device)
     tiles = _extract_blocks(lumas, blk)
-    above, left, tl = _block_neighbors(lumas, blk)
+    above, left, tl = _block_neighbors(lumas, blk, above)
     preds = _predict_modes(tiles, above, left, tl, blk,
                            consts["sm_weights"][blk])        # (M, F*B, ..)
     m, fb = preds.shape[0], preds.shape[1]
@@ -212,23 +227,52 @@ def intra_analysis_batch(lumas: torch.Tensor, qp_rows: np.ndarray,
                          rd_rows: np.ndarray,
                          depths: tuple = (64, 32, 16, 8),
                          bit_depth: int = 8, psy: bool = False,
-                         kernels: str = "hand") -> torch.Tensor:
+                         kernels: str = "hand",
+                         above: torch.Tensor | None = None) -> torch.Tensor:
     """Group-of-frames analysis with on-device RD reduction.
 
     lumas (F, Hp, Wp) uint8/int16/int32 tensor on the analysis device,
     Hp/Wp multiples of max(depths); qp_rows (F, 10) and rd_rows
     (F, 3+M+1) int32 host rows (see qp_row_for, DeviceIntraMD.rd_row).
     The frames are folded into the block batch. Returns (F, P) f32 packed
-    rows on the device; unpack with unpack_rd_analysis."""
+    rows on the device; unpack with unpack_rd_analysis. `above` (F, Wp):
+    the source row above lumas' rows when they are a shard's (None: they
+    start at the frame's top)."""
     lumas = lumas.to(torch.int32)
-    rd = torch.as_tensor(np.ascontiguousarray(rd_rows, np.int32),
-                         device=lumas.device)
+    if above is not None:
+        above = above.to(torch.int32)
+    rd = torch.tensor(np.asarray(rd_rows, np.int32), device=lumas.device)
     parts = []
     for blk in depths:
         j, mode = _analyze_depth(lumas, blk, qp_rows, rd, bit_depth, psy,
-                                 kernels)
+                                 kernels, above)
         parts += [j, mode]
     return torch.cat(parts, dim=1)
+
+
+def intra_analysis_sharded(lumas: np.ndarray, qp_rows: np.ndarray,
+                           rd_rows: np.ndarray, mesh: DeviceMesh,
+                           depths: tuple = (64, 32, 16, 8),
+                           bit_depth: int = 8, psy: bool = False,
+                           kernels: str = "hand") -> ShardedRows:
+    """intra_analysis_batch over `mesh`: frames over dp, superblock rows
+    over sp (uneven splits allowed). lumas (F, Hp, Wp) host planes, Hp a
+    multiple of 64; each shard uploads its rows and the row above them
+    to its device and is dispatched before any is fetched. Returns the
+    pending shards; their numpy() is intra_analysis_batch's (F, P)
+    rows."""
+    f, hp, wp = lumas.shape
+    shards = []
+    for dev, (f0, f1), (r0, r1) in shard_grid(f, hp // SB, mesh):
+        y0, y1 = r0 * SB, r1 * SB
+        a0 = max(y0 - 1, 0)
+        planes = upload_lumas(lumas[f0:f1, a0:y1], bit_depth, dev)
+        shards.append(((f0, f1), (r0, r1), intra_analysis_batch(
+            planes[:, y0 - a0:], qp_rows[f0:f1], rd_rows[f0:f1],
+            depths=depths, bit_depth=bit_depth, psy=psy, kernels=kernels,
+            above=planes[:, 0] if y0 else None)))
+    return ShardedRows(shards, [(SB // blk, wp // blk) for blk in depths
+                                for _ in ("j", "mode")], f, hp // SB)
 
 
 def unpack_rd_analysis(packed: np.ndarray, hp: int, wp: int,

@@ -21,10 +21,17 @@ Integer arithmetic throughout; ties go to the first (lowest) index, as
 jnp.argmin does, and the HME levels break distance ties as the reference
 does (sad * 16 + |dy| + |dx|). The results equal the JAX package's bit
 for bit.
+
+A shard of superblock rows (parallel/mesh.py) runs the same functions on
+its own rows of src and a slab of the reference that reaches REACH rows
+above and below them; a Window says where both sit in the frame, so that
+clamping, the out-of-frame masks and the HME L0 switch stay in frame
+coordinates and the shard's results equal the whole frame's rows.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -40,6 +47,32 @@ GEOMETRIES = ((64, 64), (64, 32), (32, 64), (32, 32), (32, 16), (16, 32),
 R0 = 16  # +-range at 1/16 scale
 R1 = 8   # +-range at 1/4 scale
 R2 = 8   # +-range at full scale
+
+# the farthest reference row a superblock row's search reads, in full
+# pixels (the HME L0 shift, the L1 refinement around it, the L2 window)
+REACH = R0 * 16 + R1 * 4 + R2
+# a shard's reference slab reaches SLAB rows: REACH rounded up to the
+# coarsest decimation, so that the slab decimates on the frame's grid
+SLAB = -(-REACH // 16) * 16
+
+
+@dataclass(frozen=True)
+class Window:
+    """Where a shard's planes sit in the frame, in one scale's pixels:
+    its src rows start at frame row `row0`, its reference slab at
+    `ref_row0`; the frame is `frame_h` rows high. The whole frame is
+    Window(0, 0, h)."""
+    row0: int
+    ref_row0: int
+    frame_h: int
+
+    def scaled(self, f: int) -> "Window":
+        return Window(self.row0 // f, self.ref_row0 // f, self.frame_h // f)
+
+    def ref_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Frame rows -> rows of the slab, clamped to the frame (spec MC
+        sample clamping)."""
+        return rows.clamp(0, self.frame_h - 1) - self.ref_row0
 
 
 def _decimate(plane: torch.Tensor, f: int) -> torch.Tensor:
@@ -66,7 +99,7 @@ def _dist_tiebreak(rng: int, device: str) -> torch.Tensor:
 
 
 def _shift_sad_field(src: torch.Tensor, ref: torch.Tensor, tile: int,
-                     rng: int, maxpix: int) -> torch.Tensor:
+                     rng: int, maxpix: int, win: Window) -> torch.Tensor:
     """(O, nty, ntx) SAD of every tile x every shift in +-rng, times 16,
     plus the shift's |dy| + |dx| (the distance tie-break). Out-of-frame
     shifted samples cost maxpix. All shifts at once: the plane is 1/16 of
@@ -74,14 +107,15 @@ def _shift_sad_field(src: torch.Tensor, ref: torch.Tensor, tile: int,
     h, w = src.shape
     n = 2 * rng + 1
     dev = src.device
-    ar_y = torch.arange(h, device=dev)
+    ar_y = torch.arange(h, device=dev) + win.row0        # frame rows
     ar_x = torch.arange(w, device=dev)
     sh = torch.arange(-rng, rng + 1, device=dev)
-    rows = torch.arange(-rng, h + rng, device=dev).clamp(0, h - 1)
+    rows = win.ref_rows(torch.arange(-rng, h + rng, device=dev) + win.row0)
     cols = torch.arange(-rng, w + rng, device=dev).clamp(0, w - 1)
     ref_pad = ref[rows[:, None], cols[None, :]]          # edge-replicated
     cand = ref_pad.unfold(0, h, 1).unfold(1, w, 1)       # (n, n, h, w)
-    vy = ((ar_y[None] + sh[:, None]) >= 0) & ((ar_y[None] + sh[:, None]) < h)
+    fh = win.frame_h
+    vy = ((ar_y[None] + sh[:, None]) >= 0) & ((ar_y[None] + sh[:, None]) < fh)
     vx = ((ar_x[None] + sh[:, None]) >= 0) & ((ar_x[None] + sh[:, None]) < w)
     valid = vy[:, None, :, None] & vx[None, :, None, :]  # (n, n, h, w)
     diff = torch.where(valid, (src - cand).abs(),
@@ -101,49 +135,55 @@ def _argmin_offset(sads: torch.Tensor, rng: int):
 
 
 def _gather_windows(ref: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
-                    blk: int, rng: int):
+                    blk: int, rng: int, win: Window):
     """Per-SB search windows. cy/cx: (nSBy, nSBx) center offsets in this
     scale's pixels. Returns (window, valid): (nSB, blk+2*rng, blk+2*rng)
     clipped (edge-replicating) sample gathers + in-frame mask."""
-    h, w = ref.shape
+    w = ref.shape[1]
     nby, nbx = cy.shape
     dev = ref.device
-    base_y = torch.arange(nby, device=dev)[:, None] * blk
+    base_y = torch.arange(nby, device=dev)[:, None] * blk + win.row0
     base_x = torch.arange(nbx, device=dev)[None, :] * blk
     y0 = (base_y + cy - rng).reshape(-1)
     x0 = (base_x + cx - rng).reshape(-1)
     span = torch.arange(blk + 2 * rng, device=dev)
     ry = y0[:, None] + span[None, :]
     rx = x0[:, None] + span[None, :]
-    rows = ry.clamp(0, h - 1)
+    rows = win.ref_rows(ry)
     cols = rx.clamp(0, w - 1)
-    valid = (((ry >= 0) & (ry < h))[:, :, None]
+    valid = (((ry >= 0) & (ry < win.frame_h))[:, :, None]
              & ((rx >= 0) & (rx < w))[:, None, :])
     return ref[rows[:, :, None], cols[:, None, :]], valid
 
 
 def _tiles(plane: torch.Tensor, blk: int) -> torch.Tensor:
+    """(H, W) -> (nby*nbx, blk, blk), contiguous (the sad_lattice kernel
+    takes no strided view, which one row of blocks would give)."""
     h, w = plane.shape
     return (plane.reshape(h // blk, blk, w // blk, blk)
-            .transpose(1, 2).reshape(-1, blk, blk))
+            .transpose(1, 2).reshape(-1, blk, blk).contiguous())
 
 
 def fullpel_lattice(src: torch.Tensor, ref: torch.Tensor, maxpix: int,
-                    kernels: str = "hand"):
+                    kernels: str = "hand", win: Window | None = None):
     """HME pyramid + dual-anchor full-pel search of int32 planes (H, W),
     H and W multiples of 64. Returns (sad8_h, sad8_z, cyf, cxf): the 8x8
     SAD lattices (nSB, 289, 8, 8) of the HME-centred and the zero-centred
     windows, and the full-pel window centres (nSB, 1, 1). Shared by
-    me_fullpel and the fused inter analysis (device/inter.py)."""
+    me_fullpel and the fused inter analysis (device/inter.py). With `win`,
+    src is a shard's superblock rows and ref its slab (see Window); by
+    default both are the whole frame."""
     h, w = src.shape
     nby, nbx = h // 64, w // 64
     nsb = nby * nbx
     dev = src.device
+    win = win or Window(0, 0, h)
 
     # --- HME L0 at 1/16: every shift of the whole image, box-reduced ------
-    if min(h, w) >= 128:
+    if min(win.frame_h, w) >= 128:
         s16, r16 = _decimate(src, 16), _decimate(ref, 16)
-        sad0 = _shift_sad_field(s16, r16, 4, R0, maxpix)   # (O, nby, nbx)
+        sad0 = _shift_sad_field(s16, r16, 4, R0, maxpix,
+                                win.scaled(16))            # (O, nby, nbx)
         dy0, dx0 = _argmin_offset(sad0, R0)                # 1/16-scale units
     else:
         dy0 = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
@@ -152,7 +192,8 @@ def fullpel_lattice(src: torch.Tensor, ref: torch.Tensor, maxpix: int,
     # --- HME L1 at 1/4: per-SB window around the scaled L0 winner ---------
     s4, r4 = _decimate(src, 4), _decimate(ref, 4)
     t4 = _tiles(s4, 16)[:, :, None, :]                     # (nSB, 16, 1, 16)
-    win4, val4 = _gather_windows(r4, dy0 * 4, dx0 * 4, 16, R1)
+    win4, val4 = _gather_windows(r4, dy0 * 4, dx0 * 4, 16, R1,
+                                 win.scaled(4))
     n1 = 2 * R1 + 1
     sad1 = torch.empty((n1, n1, nsb), dtype=torch.int32, device=dev)
     for oy in range(n1):
@@ -178,8 +219,8 @@ def fullpel_lattice(src: torch.Tensor, ref: torch.Tensor, maxpix: int,
     zero = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
 
     def lattice(cy_full, cx_full):
-        win, _ = _gather_windows(ref, cy_full, cx_full, 64, R2)
-        return sad(t1, win)                              # (nSB, 289, 8, 8)
+        wins, _ = _gather_windows(ref, cy_full, cx_full, 64, R2, win)
+        return sad(t1, wins)                             # (nSB, 289, 8, 8)
 
     sad8_h = lattice((cy * 4).reshape(nby, nbx), (cx * 4).reshape(nby, nbx))
     sad8_z = lattice(zero, zero)

@@ -17,6 +17,7 @@ set-up. Differences that are deliberate:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 KERNELS = ("hand", "plain")
@@ -39,6 +40,15 @@ def resolve_device(device) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def upload_lumas(lumas: np.ndarray, bit_depth: int,
+                 device: torch.device) -> torch.Tensor:
+    """Luma planes ((H, W) or (F, H, W)) -> tensor on `device`, in a
+    narrow type: uint8 at 8 bits, int16 above (torch's uint16 has few
+    ops). The lattices cast to int32 on the device."""
+    lum_dt = np.uint8 if bit_depth == 8 else np.int16
+    return torch.from_numpy(np.ascontiguousarray(lumas, lum_dt)).to(device)
 
 
 def check_kernels(kernels: str) -> str:

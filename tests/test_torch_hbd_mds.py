@@ -47,7 +47,7 @@ def test_hbd_mds_3_p6_10bit_byte_identical(exact_jax_scoring, tmp_path):
 
     depths = []
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("intra_analysis_batch", "inter_analysis"):
+        for name in ("intra_analysis_sharded", "inter_analysis_sharded"):
             def spy(*a, _orig=getattr(MD, name), **k):
                 depths.append(k["bit_depth"])
                 return _orig(*a, **k)

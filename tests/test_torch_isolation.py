@@ -54,6 +54,8 @@ def _sources() -> list[Path]:
 
 
 def test_no_source_imports_the_jax_package_or_jax():
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
+    assert {"parallel/mesh.py", "parallel/dryrun.py"} <= scanned
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in _sources()
            for line, mod in _imported_names(ast.parse(p.read_text()))
@@ -95,9 +97,10 @@ def test_port_clip_equals_the_repository_clip():
 
 def test_port_process_loads_neither_package():
     """A process that imports every module of the port (among them the
-    integer analysis tier ops/int_kernels.py, which it runs, and the
-    libaom probe conformance/libaom.py, which it loads), encodes 3 frames
-    of 64x64 through SvtAv1Encoder(device="cpu") and through the CLI
+    integer analysis tier ops/int_kernels.py, which it runs, the libaom
+    probe conformance/libaom.py, which it loads, and the mesh layout
+    parallel/), encodes 3 frames of 64x64 through
+    SvtAv1Encoder(device="cpu") and through the CLI
     (python -m svt_av1_psyex_tpu_torch.app.main --device cpu), then finds
     neither svt_av1_psyex_tpu nor jax in sys.modules, and no class of the
     port with a JAX-package class among its bases."""
@@ -118,7 +121,9 @@ def test_port_process_loads_neither_package():
         assert not subclassing, subclassing
         names = {{m.__name__ for m in mods}}
         assert {{"svt_av1_psyex_tpu_torch.ops.int_kernels",
-                 "svt_av1_psyex_tpu_torch.conformance.libaom"}} <= names
+                 "svt_av1_psyex_tpu_torch.conformance.libaom",
+                 "svt_av1_psyex_tpu_torch.parallel.mesh",
+                 "svt_av1_psyex_tpu_torch.parallel.dryrun"}} <= names
         import torch
         from svt_av1_psyex_tpu_torch.conformance import libaom
         from svt_av1_psyex_tpu_torch.ops import int_kernels

@@ -27,6 +27,12 @@ failure raises and the script exits non-zero without a result:
    batch.
    sad_lattice bit-exact, with 8-bit and 10-bit samples, at an off-tile
    batch and at one 720p (240 superblocks) and one 1080p (510) frame.
+   Both also at the batches of the later phases' paths: fullloop at a
+   4-frame chunk of phase 6's group (n = 8, 16, 32), at phase 11's
+   larger 1080p shard (2 frames, 9 of 17 superblock rows) and at a
+   quarter of a 720p inter candidate (a (1, 4) shard); sad_lattice at a
+   720p shard (60 superblocks) and at phase 12's host-MD motion field
+   (one 128x96 frame, 4 superblocks).
 4. slice: the config-1 clip (the "blobs" clip of tools/mkclip.py, made by
    svt_av1_psyex_tpu_torch/utils/clips.py; 352x288, 32 frames,
    preset 12, qindex 140) through the port's Av1Encoder.encode_keyframes
@@ -52,7 +58,15 @@ failure raises and the script exits non-zero without a result:
 6. 1080p: 1920x1080 8-bit all-intra, 16 frames, preset 12, qindex 140:
    a warm-up encode, then a timed one (fps, device analysis vs host
    stages), then the device analysis alone with the kernels and with
-   the plain versions.
+   the plain versions. Then the group again under SVT_TPU_GROUP_CHUNK=4
+   (each 4-frame chunk's analysis dispatched before the host commits the
+   chunk before it; the main path "1080p chunked": counts set to 0
+   before it and read after it): its TUs against the unchunked run's,
+   each differing frame printed with the qindex it was coded at in each
+   run (which must agree) and the mode agreement per depth of the
+   analysis rows each run coded it from (>= 0.98); both
+   fps and both runs' device_analysis (with chunks: the dispatches and
+   the time blocked on a chunk's rows).
 7. config 2: BASELINE.json config 2 itself, "blobs" 1280x720 8-bit, 48
    frames, through the port's SvtAv1Encoder (api/encoder.py) at preset
    8, CRF 30, everything else at its default (random access, 16-frame
@@ -129,9 +143,31 @@ failure raises and the script exits non-zero without a result:
    parallel.dryrun.dryrun_multichip(4) on the card. fps sharded and
    unsharded, the distinct cards and the shards on each, launches; dav1d
    as in phase 4.
+12. host MD: the paths the device MD does not take (the host MD of
+   codec/md.py, with the device motion field under its inter frames)
+   and mono's device MD, at the tier-1 tests' clip sizes: a 128x96 4:4:4
+   keyframe + 4-frame mini-GOP at preset 10, a 256x128 two-tile-column
+   keyframe + 2-frame mini-GOP at preset 8, a 128x96 mono keyframe +
+   4-frame mini-GOP at preset 6, a 128x128 screen-content (palette)
+   keyframe at preset 6, and a 64x64 10-bit preset-4 film-grain keyframe
+   + 1-frame mini-GOP, each encoded on the card with the kernels (the
+   main path "host MD": counts set to 0 before each and read after it;
+   sad must launch, and fullloop on the mono GOP) and on the CPU, all
+   ten encodes at once in spawn worker processes (the host MD runs for
+   minutes on one thread). The TUs must agree byte for byte; a
+   differing TU is printed with both qindexes and the decision agreement
+   per depth, and fails on another qindex, on agreement below 0.98, or
+   when its frame ran the host MD (whose device inputs are exact
+   integers). Then the time from a fresh SvtAv1Encoder at config 2's
+   shape to its first packet, each in a fresh process (this script with
+   --first-packet): init (which starts no warm-up) and then
+   SvtAv1Encoder.warm_device, once as it is and once under
+   SVT_TPU_NO_WARM=1.
 
 Then a JSON line of the kernels ("launches": the counts of the kernel
-runs of phases 7, 8, 10 and 11 summed, "launches_by_path" each of them;
+runs of phases 7, 8, 10, 11, 6's chunked group and 12 summed,
+"launches_by_path" each of them; a warm-up thread's launches count
+apart, in the wrappers' warm_launches;
 fullloop "ms"/"plain_ms": its device time summed over its launches in
 one 1080p 16-frame analysis, "bound_ms" the sum of those launches'
 bounds, "max_abs_err": the largest |inverse residual| difference
@@ -150,6 +186,7 @@ sys.modules.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -185,6 +222,14 @@ INTDCT_FRAME = dict(h=1088, blk=64)
 # (12 rows, 3 per shard)
 MESH_HD = dict(HD, frames=4, mesh=(2, 2))
 MESH_INTER = dict(INTER, mesh=(1, 4))
+# phase 6 again with the keyframe group's analysis in chunks of 4 frames
+HD_CHUNK = 4
+# the frame of phase 12's host-MD motion fields (the 4:4:4 and mono GOPs)
+HOST_MD_ME = dict(w=128, h=96)
+# phase 12: the host-MD paths, card vs CPU, on the clips of
+# tests/test_torch_host_paths*.py and tests/test_torch_film_grain.py
+HOST_MD_PATHS = ("4:4:4 GOP", "2-tile inter GOP", "mono p6 GOP",
+                 "screen-content keyframe", "film grain p4 10-bit")
 KERNELS = ("fullloop", "sad")
 REPLACES = {"fullloop": "svt_av1_psyex_tpu/ops/pallas/fullloop.py:151",
             "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69"}
@@ -342,6 +387,18 @@ def phase_kernels(device) -> dict:
         if n in (16, 32):
             # one 1080p 10-bit frame's intra lattice (config 3)
             cases.append(("1080p-10bit-1-frame", lattice_batch(HD, n, 1)))
+            # a quarter of a 720p inter candidate: one (1, 4) mesh shard
+            cases.append(("720p-inter-candidate-shard",
+                          blocks(INTER, n) // MESH_INTER["mesh"][1]))
+        if n != 4:
+            # a chunk of phase 6's group under SVT_TPU_GROUP_CHUNK
+            cases.append((f"1080p-chunk-{HD_CHUNK}-frames",
+                          lattice_batch(HD, n, HD_CHUNK)))
+            # the larger (2, 2) mesh shard of phase 11: 2 frames, 9 of
+            # 17 superblock rows
+            cases.append(("1080p-shard-2f-9rows",
+                          7 * (9 * 64 // n) * (-(-HD["w"] // 64) * 64 // n)
+                          * 2))
         for label, b in cases:
             ten = "10bit" in label
             qp6 = qp6_for(qp_row10 if ten else qp_row, ls)
@@ -411,7 +468,10 @@ def phase_sad(device) -> dict:
     worst = 0
     out = {}
     for label, nsb in (("off-tile", 7), ("720p", superblocks(INTER)),
-                       ("1080p", superblocks(HD))):
+                       ("1080p", superblocks(HD)),
+                       ("720p-shard", superblocks(INTER)
+                        // MESH_INTER["mesh"][1]),
+                       ("host-MD-128x96", superblocks(HOST_MD_ME))):
         ms = {}
         for bd in (8, 10):
             g = torch.Generator(device=device).manual_seed(nsb * 16 + bd)
@@ -453,16 +513,31 @@ def make_frames(cfg: dict) -> list:
     return [synth_frame(fmt, t) for t in range(cfg["frames"])]
 
 
-def make_encoder(cfg: dict, device, kernels: str, mesh=None):
+def make_encoder(cfg: dict, device, kernels: str, mesh=None,
+                 record: bool = False):
+    """The port's encoder for cfg; with `record`, it keeps each coded
+    frame's (qindex, analysis row it was coded from) in `coded`."""
     from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
 
-    return Av1Encoder(SequenceConfig(width=cfg["w"], height=cfg["h"]),
-                      preset=cfg["preset"], device=device, kernels=kernels,
-                      mesh=mesh)
+    class Recording(Av1Encoder):
+        def _begin_frame_impl(self, planes, base_q_idx=80, force_key=False,
+                              plan=None, _analysis_row=None, _group=None):
+            st = super()._begin_frame_impl(planes, base_q_idx, force_key,
+                                           plan, _analysis_row, _group)
+            if isinstance(st, dict):
+                self.coded.append((st["fr"].base_q_idx, _analysis_row))
+            return st
+
+    enc = (Recording if record else Av1Encoder)(
+        SequenceConfig(width=cfg["w"], height=cfg["h"]),
+        preset=cfg["preset"], device=device, kernels=kernels, mesh=mesh)
+    enc.coded = []
+    return enc
 
 
-def encode(frames: list, cfg: dict, device, kernels: str, mesh=None):
-    enc = make_encoder(cfg, device, kernels, mesh)
+def encode(frames: list, cfg: dict, device, kernels: str, mesh=None,
+           record: bool = False):
+    enc = make_encoder(cfg, device, kernels, mesh, record)
     t0 = time.perf_counter()
     tus = enc.encode_keyframes(frames, cfg["qindex"])
     return enc, tus, time.perf_counter() - t0
@@ -676,7 +751,7 @@ def phase_hd(device) -> dict:
     # the host tier's own per-stage clock (accumulated in enc.timing)
     os.environ["SVT_TPU_TIMING"] = "1"
     try:
-        enc, tus, dt = encode(frames, HD, device, "hand")
+        enc, tus, dt = encode(frames, HD, device, "hand", record=True)
     finally:
         del os.environ["SVT_TPU_TIMING"]
     launches = cuda_fullloop.launches
@@ -690,6 +765,7 @@ def phase_hd(device) -> dict:
         t0 = time.perf_counter()
         a.analyze_keyframes(frames, HD["qindex"])
         analysis.setdefault(kernels, []).append(time.perf_counter() - t0)
+    chunked = group_chunk(frames, tus, enc, dt, device)
     print(f"1080p: {HD['w']}x{HD['h']} 8-bit, {HD['frames']} frames, "
           f"p{HD['preset']}, q{HD['qindex']}: {HD['frames'] / dt:.3f} fps "
           f"({dt:.3f} s: {stages(enc)}; host tier per stage, s: "
@@ -699,7 +775,56 @@ def phase_hd(device) -> dict:
           f"{analysis['hand']}, plain {analysis['plain']}; depths "
           f"{enc.keyframe_depths()}; fullloop launches {launches}; "
           f"{sum(map(len, tus))} bytes; {gate}", flush=True)
-    return {"frames": frames, "tus": tus, "cdef_s": enc.stage_seconds["cdef"]}
+    return {"frames": frames, "tus": tus, "cdef_s": enc.stage_seconds["cdef"],
+            "chunked_launches": chunked}
+
+
+def group_chunk(frames: list, tus: list, enc, dt: float, device) -> dict:
+    """Phase 6's group again under SVT_TPU_GROUP_CHUNK=HD_CHUNK: each
+    chunk's analysis is dispatched before the host commits the one before
+    it. A chunk is a smaller batch, so a TU may differ from the unchunked
+    run's (`enc`, made with record=True): each differing frame must have
+    been coded at the same qindex in both runs, and the analysis rows
+    each run coded it from must agree on >= 0.98 of the modes per depth.
+    Returns the chunked run's launch counts."""
+    import numpy as np
+
+    from svt_av1_psyex_tpu_torch.device.intra import unpack_rd_analysis
+
+    os.environ["SVT_TPU_GROUP_CHUNK"] = str(HD_CHUNK)
+    try:
+        (enc_c, tus_c, dt_c), launches = counted(
+            lambda: encode(frames, HD, device, "hand", record=True))
+    finally:
+        del os.environ["SVT_TPU_GROUP_CHUNK"]
+    check(len(tus_c) == len(tus) and launches["fullloop"] > 0,
+          "1080p chunked: a TU per frame and fullloop launches")
+    check(len(enc_c.coded) == len(enc.coded) == len(tus),
+          "1080p chunked: a recorded analysis row per coded frame")
+    diff = [i for i, (a, b) in enumerate(zip(tus_c, tus)) if a != b]
+    depths = enc.keyframe_depths()
+    hp, wp = -(-enc.aligned_h // 64) * 64, -(-enc.aligned_w // 64) * 64
+    for i in diff:
+        (qc, row_c), (qu, row_u) = enc_c.coded[i], enc.coded[i]
+        a = unpack_rd_analysis(row_c, hp, wp, depths)
+        b = unpack_rd_analysis(row_u, hp, wp, depths)
+        agree = {blk: float(np.mean(a[blk]["mode"] == b[blk]["mode"]))
+                 for blk in depths}
+        print(f"1080p chunked: frame {i} TU differs from the unchunked "
+              f"run's; qindex {qc} chunked, {qu} unchunked; mode agreement "
+              f"per depth of the rows each run coded it from {agree}",
+              flush=True)
+        check(qc == qu, f"1080p chunked: frame {i} qindex differs")
+        check(min(agree.values()) >= 0.98,
+              f"1080p chunked: frame {i} mode agreement below 0.98")
+    n = len(frames)
+    print(f"1080p chunked: SVT_TPU_GROUP_CHUNK={HD_CHUNK}, {n} frames: "
+          f"{n / dt_c:.3f} fps ({dt_c:.3f} s: {stages(enc_c)}) against "
+          f"{n / dt:.3f} fps unchunked ({stages(enc)}); device_analysis "
+          f"counts each chunk's dispatch and the time blocked on its rows; "
+          f"{len(diff)} of {n} TUs differ; launches {launches}",
+          flush=True)
+    return launches
 
 
 def recording_api(cfg: dict, device, kernels: str, recon: bool = False):
@@ -1530,6 +1655,248 @@ def phase_mesh(device) -> dict:
     return {name: l_m[name] + gl_m[name] for name in KERNELS}
 
 
+def host_md_case(name: str) -> tuple:
+    """Phase 12's encode `name`: (SequenceConfig arguments, Av1Encoder
+    arguments, frames, qindex, gop: None for encode_keyframe per frame,
+    else a keyframe and a gop-frame mini-GOP). The clips are those of
+    tests/test_torch_host_paths*.py (the JAX package's tests/test_444.py,
+    test_tiles.py, test_mono.py, test_palette.py) and of
+    tests/test_torch_film_grain.py; the tiled GOP and the film-grain
+    encode are cut in depth."""
+    import numpy as np
+
+    from svt_av1_psyex_tpu_torch.streams import VideoFormat
+    from svt_av1_psyex_tpu_torch.utils.clips import synth_frame
+
+    w, h = HOST_MD_ME["w"], HOST_MD_ME["h"]
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def luma(t):
+        return np.clip(110 + 70 * np.sin((xx + 4 * t) / 9.0)
+                       * np.cos(yy / 7.0) + rng.integers(-5, 6, (h, w)),
+                       0, 255).astype(np.uint8)
+
+    if name == "4:4:4 GOP":
+        frames = []
+        for t in range(5):
+            frames.append([
+                luma(t),
+                np.clip(100 + 60 * np.cos((xx + 4 * t) / 11.0), 0,
+                        255).astype(np.uint8),
+                np.clip(150 - 60 * np.sin(yy / 13.0), 0,
+                        255).astype(np.uint8)])
+        return (dict(width=w, height=h, profile=1, subsampling_x=0,
+                     subsampling_y=0), dict(preset=10), frames, 120, 4)
+    if name == "mono p6 GOP":
+        return (dict(width=w, height=h, mono_chrome=True), dict(preset=6),
+                [[luma(t)] for t in range(5)], 120, 4)
+    if name == "2-tile inter GOP":
+        # cut to a 2-frame mini-GOP: the test's 4-frame one takes about
+        # 150 s of host MD on one thread
+        fmt = VideoFormat(256, 128)
+        return (dict(width=256, height=128),
+                dict(preset=8, tile_cols_log2=1),
+                [synth_frame(fmt, t) for t in range(3)], 120, 2)
+    if name == "screen-content keyframe":
+        # tests/test_palette.py's _sc_frame(): text-like strokes
+        rng_sc = np.random.default_rng(0)
+        y = np.full((128, 128), 32, np.uint8)
+        y[:64] = 200
+        for _ in range(12):
+            r0, c0 = rng_sc.integers(0, 104, 2)
+            y[r0:r0 + 3, c0:c0 + 24] = 90
+            y[r0:r0 + 20, c0:c0 + 2] = 140
+        return (dict(width=128, height=128),
+                dict(preset=6, screen_content_mode=1),
+                [[y, np.full((64, 64), 110, np.uint8),
+                  np.full((64, 64), 140, np.uint8)]], 100, None)
+    if name == "film grain p4 10-bit":
+        fmt = VideoFormat(64, 64, 10)
+        return (dict(width=64, height=64, bit_depth=10),
+                dict(preset=4, film_grain=8, adaptive_film_grain=True),
+                [synth_frame(fmt, t) for t in range(2)], 120, 1)
+    raise ValueError(name)
+
+
+def host_md_encode(name: str, device, kernels: str = "hand") -> tuple:
+    """Phase 12's encode `name` on `device`. Returns (TUs, per TU its
+    coded frame's (qindex, {depth: the device MD's winning mode or
+    candidate per block}, empty for a host-MD frame) or None for a
+    show-existing TU, seconds)."""
+    import numpy as np
+
+    from svt_av1_psyex_tpu_torch.codec.encoder import Av1Encoder, SequenceConfig
+    from svt_av1_psyex_tpu_torch.codec.gop import plan_key, plan_minigop
+
+    seq_kw, enc_kw, frames, q, gop = host_md_case(name)
+    coded = []
+
+    class Recording(Av1Encoder):
+        def _begin_frame_impl(self, *a, **k):
+            st = super()._begin_frame_impl(*a, **k)
+            if isinstance(st, dict):
+                dmd = st["dmd"]
+                dec = {}
+                if dmd is not None and getattr(dmd, "stats", None):
+                    key = ("cand" if "cand" in dmd.stats[dmd.DEPTHS[0]]
+                           else "mode")
+                    dec = {blk: np.asarray(dmd.stats[blk][key])
+                           for blk in dmd.DEPTHS}
+                coded.append((st["fr"].base_q_idx, dec))
+            return st
+
+    enc = Recording(SequenceConfig(**seq_kw), device=device,
+                    kernels=kernels, **enc_kw)
+    t0 = time.perf_counter()
+    tus, per_tu = [], []
+    if gop is None:
+        for f in frames:
+            tus.append(enc.encode_keyframe([p.copy() for p in f], q))
+            per_tu.append(coded[-1])
+    else:
+        for pl in [plan_key(0)] + plan_minigop(0, 1, gop, future_slot=1):
+            n = len(coded)
+            src = (None if pl.show_existing_slot is not None
+                   else [p.copy() for p in frames[pl.disp_idx]])
+            tus.append(enc.encode_frame(src, q, plan=pl))
+            per_tu.append(coded[-1] if len(coded) > n else None)
+    return tus, per_tu, time.perf_counter() - t0
+
+
+def host_md_run(name: str, device: str) -> tuple:
+    """host_md_encode in a worker process (one torch thread), the
+    kernels' launch counts set to 0 just before it and read just after
+    it: (TUs, per TU the coded frame's decisions, seconds, launches)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    from svt_av1_psyex_tpu_torch.runtime import resolve_device
+
+    out, launches = counted(
+        lambda: host_md_encode(name, resolve_device(device)))
+    return out + (launches,)
+
+
+def phase_host_md(device) -> dict:
+    """Phase 12: the host-MD paths, each encoded on the card and on the
+    CPU, all at once in worker processes (the host MD runs for minutes
+    on one thread). Returns the card runs' launch counts summed (the
+    main path of this phase)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    total = {name: 0 for name in KERNELS}
+    words = []
+    with ProcessPoolExecutor(
+            2 * len(HOST_MD_PATHS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = {(name, dev): pool.submit(host_md_run, name, dev)
+                for name in HOST_MD_PATHS for dev in (str(device), "cpu")}
+        for name in HOST_MD_PATHS:
+            tus_k, coded_k, dt_k, launches = runs[name, str(device)].result()
+            tus_c, coded_c, dt_c, _ = runs[name, "cpu"].result()
+            for k in KERNELS:
+                total[k] += launches[k]
+            if name == "mono p6 GOP":
+                check(launches["fullloop"] > 0, "host MD: the mono GOP "
+                      "launched no fullloop kernel")
+            check(len(tus_k) == len(tus_c) and all(tus_k),
+                  f"host MD: {name}: TU counts")
+            diff = [i for i, (a, b) in enumerate(zip(tus_k, tus_c))
+                    if a != b]
+            for i in diff:
+                check(coded_k[i] is not None and coded_c[i] is not None,
+                      f"host MD: {name}: show-existing TU {i} differs")
+                (qk, dk), (qc, dc) = coded_k[i], coded_c[i]
+                agree = {blk: float(np.mean(dk[blk] == dc[blk]))
+                         for blk in dk}
+                print(f"host MD: {name}: TU {i} differs card vs CPU; "
+                      f"qindex {qk} on the card, {qc} on the CPU; decision "
+                      f"agreement per depth {agree or 'none: a host-MD '
+                      'frame, whose device inputs are exact integers'}",
+                      flush=True)
+                check(qk == qc, f"host MD: {name}: TU {i} qindex differs")
+                check(bool(agree) and min(agree.values()) >= 0.98,
+                      f"host MD: {name}: TU {i} decision agreement")
+            words.append(f"{name}: {len(diff)} of {len(tus_k)} TUs differ "
+                         f"card vs CPU, card {dt_k:.3f} s, CPU {dt_c:.3f} s, "
+                         f"launches {launches}, "
+                         f"{sum(map(len, tus_k))} bytes")
+    check(total["sad"] > 0, "host MD: no sad launch on the host-MD paths")
+    for w in words:
+        print(f"host MD: {w}", flush=True)
+    return total
+
+
+def first_packet_child() -> int:
+    """With --first-packet: the seconds from a fresh SvtAv1Encoder at
+    config 2's shape (on the card, its init and its warm_device call
+    included) to its first packet, the clip's frames made beforehand;
+    printed as a JSON line."""
+    sys.path.insert(0, str(ROOT))
+    frames = make_frames(dict(CONFIG2, frames=13))
+    from svt_av1_psyex_tpu_torch.api.encoder import SvtAv1Encoder
+
+    t0 = time.perf_counter()
+    api = SvtAv1Encoder(device="cuda")
+    c = api.config
+    c.source_width, c.source_height = CONFIG2["w"], CONFIG2["h"]
+    c.enc_mode, c.crf = CONFIG2["preset"], CONFIG2["crf"]
+    c.frame_rate_numerator, c.frame_rate_denominator = 30, 1
+    api.init()
+    check(api._enc._warm_thread is None, "first packet: init started "
+          "a warm-up")
+    api.warm_device()
+    t_init = time.perf_counter() - t0
+    pkt = None
+    for t, f in enumerate(frames):
+        api.send_picture(f, t)
+        if (pkt := api.get_packet()) is not None:
+            break
+    dt = time.perf_counter() - t0
+    check(pkt is not None and len(pkt.data) > 0, "first packet: none")
+    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop, sad
+
+    print(json.dumps({"first_packet_s": dt, "init_s": t_init,
+                      "frames_sent": t + 1,
+                      "sha256": hashlib.sha256(pkt.data).hexdigest(),
+                      "warm_launches": {"fullloop": fullloop.warm_launches,
+                                        "sad": sad.warm_launches}}))
+    return 0
+
+
+def phase_first_packet() -> str:
+    """The time to the first packet of a fresh SvtAv1Encoder at config
+    2's shape, in a fresh process each: init, then warm_device as it is,
+    then under SVT_TPU_NO_WARM=1 (where it does nothing). No claim: the
+    numbers."""
+    out = {}
+    for label, env in (("warm", {}), ("no warm", {"SVT_TPU_NO_WARM": "1"})):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--first-packet"],
+            cwd=ROOT, env={**os.environ, **env}, capture_output=True,
+            text=True, timeout=300)
+        check(proc.returncode == 0, f"first packet ({label}) exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        out[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(out["warm"]["sha256"] == out["no warm"]["sha256"],
+          "first packet: the keyframe's TU differs with and without warm")
+    check(min(out["warm"]["warm_launches"].values()) > 0
+          and max(out["no warm"]["warm_launches"].values()) == 0,
+          f"first packet: warm launches {out['warm']['warm_launches']} "
+          f"with warm, {out['no warm']['warm_launches']} without")
+    return "the keyframe's TU identical with and without; " + "; ".join(
+        f"{label}: {r['first_packet_s']:.3f} s to the first packet "
+        f"(init and warm_device {r['init_s']:.3f} s, "
+        f"{r['frames_sent']} frames sent, "
+        f"warm launches {r['warm_launches']})"
+        for label, r in out.items())
+
+
 def main() -> int:
     import torch
 
@@ -1579,6 +1946,12 @@ def main() -> int:
     by_path["intdct"] = timed("phase 10 (intdct)", phase_intdct, device,
                               inter, hd)
     by_path["mesh"] = timed("phase 11 (mesh)", phase_mesh, device)
+    by_path["1080p chunked"] = hd["chunked_launches"]
+    by_path["host MD"] = timed("phase 12 (host MD)", phase_host_md, device)
+    print(f"first packet: config 2's shape through a fresh SvtAv1Encoder "
+          f"in a fresh process ({smi}): "
+          f"{timed('phase 12 (first packet)', phase_first_packet)}",
+          flush=True)
     check(not any(m.split(".")[0] in ("jax", "svt_av1_psyex_tpu")
                   for m in sys.modules), "jax or the JAX package was imported")
 
@@ -1602,4 +1975,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(first_packet_child() if sys.argv[1:] == ["--first-packet"]
+             else main())

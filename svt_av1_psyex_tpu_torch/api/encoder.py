@@ -263,10 +263,40 @@ class SvtAv1Encoder:
                             else 8))
         self._initialized = True
 
+    def warm_device(self) -> None:
+        """Start Av1Encoder.warm_device for this encode, after init: its
+        thread builds the kernels and runs each device program once, TPL
+        at the keyframe's group length, TF at the keyframe's and the
+        ARF's neighbour counts. The JAX API starts its counterpart from
+        init; this one is started only by a caller that asks, because on
+        the H100 it made the first packet later, not sooner (PERF.md,
+        first packet): frames that are already in memory reach the first
+        device call at once, so the thread has nothing to overlap and its
+        programs queue ahead of the keyframe's. A caller whose frames
+        come later than init may start it to pay the first-use costs
+        meanwhile. Does nothing on the CPU or under SVT_TPU_NO_WARM=1."""
+        if not self._initialized:
+            raise SvtAv1Error("not initialized")
+        cfg = self.config
+        tpl_frames = 0
+        if self._tpl_on() and not self._rc:
+            la = cfg.look_ahead_distance
+            la = 11 if la < 0 else min(la, 32)
+            tpl_frames = len(self._reduce_kf_look(list(range(1 + la))))
+        tf_windows = ()
+        if (cfg.enable_tf and cfg.enc_mode <= 9 and cfg.pred_structure != 1
+                and os.environ.get("SVT_TPU_HOST_TF") != "1"):
+            if cfg.kf_tf_strength > 0:
+                tf_windows += (3,)
+            if self._max_minigop() > 1:
+                tf_windows += (min(6, self._max_minigop() - 1),)
+        self._enc.warm_device(tpl_frames, tf_windows)
+
     def _temporal_filter(self, planes, nbrs, strength: int) -> list:
         """The port's temporal filter at the encode's q and bit depth, on
         self.device; its seconds go to the "tf" stage under
         SVT_TPU_TIMING=1."""
+        self._enc.join_warm()
         t0 = time.perf_counter()
         out = temporal_filter(planes, nbrs, self.config.qindex,
                               self.config.encoder_bit_depth,
@@ -277,6 +307,7 @@ class SvtAv1Encoder:
 
     def _run_tpl(self, look: list, base_qindex: int):
         """The port's TPL dispenser on self.device through self.kernels."""
+        self._enc.join_warm()
         return run_tpl(look, base_qindex, self.config.encoder_bit_depth,
                        compute_rate=self.config.enc_mode <= 2,
                        device=self.device, kernels=self.kernels)
@@ -480,16 +511,8 @@ class SvtAv1Encoder:
                         rtg = reduced_tpl_group_level(
                             self.config.enc_mode, hl, True,
                             self._small_res())
-                        # reduced TPL group: drop layers > rtg from the
-                        # propagation chain (validate_pic_for_tpl) — the
-                        # anchor is offset 0, so keep offsets divisible
-                        # by the layer stride
-                        stride = 1 << max(0, hl - rtg) if rtg >= 0 else 1
                         full_n = len(look)
-                        if stride > 1:
-                            look = [look[0]] + [look[j] for j in
-                                                range(stride, full_n,
-                                                      stride)]
+                        look = self._reduce_kf_look(look)
                         tpl = self._run_tpl(look, q)
                         q = crf_qindex_calc(
                             q, is_intra=True, layer=0, hl=hl, leaf=False,
@@ -703,6 +726,19 @@ class SvtAv1Encoder:
                 i = j
             if length > 1:
                 self._anchor_slot = future
+
+    def _reduce_kf_look(self, look: list) -> list:
+        """The keyframe's reduced TPL group: drop layers > rtg from the
+        propagation chain (validate_pic_for_tpl) — the anchor is offset 0,
+        so keep offsets divisible by the layer stride."""
+        hl = max(self._max_minigop().bit_length() - 1, 1)
+        rtg = reduced_tpl_group_level(self.config.enc_mode, hl, True,
+                                      self._small_res())
+        stride = 1 << max(0, hl - rtg) if rtg >= 0 else 1
+        if stride > 1:
+            look = [look[0]] + [look[j] for j in range(stride, len(look),
+                                                       stride)]
+        return look
 
     def _max_minigop(self) -> int:
         """Mini-GOP size from hierarchical_levels (0 = auto by preset;

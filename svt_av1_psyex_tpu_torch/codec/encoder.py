@@ -20,6 +20,7 @@ kernels="plain", their plain PyTorch versions.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -41,6 +42,7 @@ from ..bitstream.tile_writer import LeafBlock, PartitionNode, TileWriter
 from ..device.intra import DEVICE_MODES, intra_analysis_sharded, qp_row_for
 from ..native import cdefc
 from ..ops import intra as intra_ops
+from ..ops.cuda import warming
 from ..ops.quant import build_plane_quant, quantize_b
 from ..ops.txfm import forward_txfm2d, inverse_txfm2d
 from .constants import (
@@ -142,6 +144,8 @@ class Av1Encoder:
         self.kernels = check_kernels(kernels)
         self.mesh = self._check_mesh(mesh)
         self.stage_seconds: dict = {}
+        self._warm_thread = None   # warm_device's thread, until joined
+        self._warm_error = None    # what it raised
         self.seq = seq
         self.preset = preset
         # screen-content tools: 0 off / 1 force / 2 auto-detect per KF
@@ -276,6 +280,91 @@ class Av1Encoder:
                      or (seq.subsampling_x and seq.subsampling_y))
                 and os.environ.get("SVT_TPU_HOST_MD") != "1")
 
+    def warm_device(self, tpl_frames: int = 0,
+                    tf_windows: tuple = ()) -> None:
+        """Start a background thread that pays this encode's first-use
+        costs on the card while the host does other work: it builds and
+        loads both kernels if this encoder runs them (nvcc at first use,
+        ops/cuda/build.py), then runs each device program the encode will
+        use once, on a zero frame of the encode's size through the entry
+        the encode calls it through, and drops the outputs, so that the
+        CUDA context, the cuBLAS handle and the caching allocator's pools
+        exist before the first frame. The programs, in first-use order:
+        the keyframe analysis, TPL over `tpl_frames` frames (0: the
+        encode runs no TPL), the inter analysis (a forward and a backward
+        reference) and the temporal filter with each neighbour count in
+        `tf_windows`. Nothing starts it by default (api.encoder.
+        SvtAv1Encoder.warm_device says why).
+
+        Does nothing on the CPU, for an encode the device MD cannot take
+        (_device_md_precheck), or under SVT_TPU_NO_WARM=1. The encoder's
+        next device call joins the thread and re-raises what it raised
+        (join_warm). Its kernel launches count in the wrappers'
+        `warm_launches`, not in `launches`."""
+        if (os.environ.get("SVT_TPU_NO_WARM") == "1"
+                or self.device.type == "cpu"
+                or not self._device_md_precheck()):
+            return
+        self.join_warm()
+
+        def work():
+            try:
+                with warming():
+                    self._warm_programs(tpl_frames, tf_windows)
+            except Exception as e:   # re-raised by join_warm
+                self._warm_error = e
+
+        self._warm_thread = threading.Thread(target=work, daemon=True,
+                                             name="svt-torch-warm")
+        self._warm_thread.start()
+
+    def _warm_programs(self, tpl_frames: int, tf_windows: tuple) -> None:
+        """warm_device's work, on the calling thread. Each program's
+        output is fetched, so a failed launch raises here."""
+        from ..device.inter import inter_analysis_sharded
+        from .tf import temporal_filter
+        from .tpl import run_tpl
+
+        if self.kernels == "hand":   # a plain encode builds no kernel
+            from ..ops.cuda import build
+
+            for name in ("fullloop", "sad"):
+                build.load(name)
+        seq, bd = self.seq, self.seq.bit_depth
+        dt = np.uint8 if bd == 8 else np.uint16
+        frame = [np.zeros((seq.height, seq.width), dt)] + [
+            np.zeros(((seq.height + 1) >> 1, (seq.width + 1) >> 1), dt)
+            for _ in range(0 if seq.mono_chrome else 2)]
+        lumas, qps, rds, psy = inputs = self._keyframe_inputs([frame], 100)
+        self._launch_keyframes(inputs, self.mesh).numpy()
+        if tpl_frames:
+            run_tpl([frame[0]] * tpl_frames, 100, bd, device=self.device,
+                    kernels=self.kernels)
+        # DeviceInterMD.rd_row's layout: rdmult, skips, the intra modes'
+        # rates, NEWMV and zero-MV bases x 8, compound x 2, psy
+        rd = np.zeros(rds.shape[1] + 18, np.int32)
+        rd[0] = 1
+        inter_analysis_sharded(
+            lumas[0], np.stack([lumas[0]] * 2), qps[0], rd, self.mesh,
+            depths=self.keyframe_depths(), bit_depth=bd, psy=psy,
+            kernels=self.kernels).numpy()
+        for n in tf_windows:
+            temporal_filter(frame, [frame] * n, 100, bd, device=self.device)
+
+    def join_warm(self) -> None:
+        """Wait for warm_device's thread, if one runs, and re-raise what
+        it raised. Every device call of the encoder starts here (the
+        thread's own calls pass)."""
+        thread = self._warm_thread
+        if thread is None or thread is threading.current_thread():
+            return
+        thread.join()
+        self._warm_thread = None
+        err, self._warm_error = self._warm_error, None
+        if err is not None:
+            raise RuntimeError("the device warm-up (warm_device) "
+                               "failed") from err
+
     @property
     def _min_partition_bsize(self) -> int:
         """Preset -> smallest searched square bsize (depth ladder)."""
@@ -350,6 +439,7 @@ class Av1Encoder:
         import os as _os
         import time as _time
 
+        self.join_warm()
         _timing = _os.environ.get("SVT_TPU_TIMING") == "1"
         _t0 = _time.perf_counter() if _timing else 0.0
         try:
@@ -1342,14 +1432,9 @@ class Av1Encoder:
                              f"encoder runs on {self.device}")
         return mesh
 
-    def analyze_keyframes(self, frames: list, base_q_idx: int,
-                          mesh=None) -> np.ndarray:
-        """The batched device analysis of a keyframe group: (F, P) packed
-        (J, mode) rows on the host, as device.intra.intra_analysis_batch
-        returns them (unpack with unpack_rd_analysis at
-        self.keyframe_depths()). The frames go over the dp axis of `mesh`
-        (by default self.mesh) and the superblock rows over its sp axis
-        (device.intra.intra_analysis_sharded)."""
+    def _keyframe_inputs(self, frames: list, base_q_idx: int) -> tuple:
+        """The host inputs of a keyframe group's analysis: (lumas
+        (F, Hp, Wp), qp rows (F, 10), rd rows (F, R), psy)."""
         bd = self.seq.bit_depth
         lumas = np.stack([
             DeviceIntraMD.pad_src(self._pad_plane(
@@ -1371,13 +1456,30 @@ class Av1Encoder:
             [compute_rdmult(q0, bd), sk[0], sk[1]],
             mode_rate, [psy_fixed]]).astype(np.int32)
         n = len(frames)
-        qps = np.broadcast_to(qp, (n, qp.size))
-        rds = np.broadcast_to(rd, (n, rd.size))
+        return (lumas, np.broadcast_to(qp, (n, qp.size)),
+                np.broadcast_to(rd, (n, rd.size)), psy_fixed > 0)
+
+    def _launch_keyframes(self, inputs: tuple, mesh: DeviceMesh):
+        """Dispatch the analysis of _keyframe_inputs' `inputs` over `mesh`
+        without waiting for it: the pending device.intra.
+        intra_analysis_sharded rows."""
+        self.join_warm()
+        lumas, qps, rds, psy = inputs
         return intra_analysis_sharded(
-            lumas, qps, rds,
-            self._check_mesh(self.mesh if mesh is None else mesh),
-            depths=self.keyframe_depths(), bit_depth=bd, psy=psy_fixed > 0,
-            kernels=self.kernels).numpy()
+            lumas, qps, rds, mesh, depths=self.keyframe_depths(),
+            bit_depth=self.seq.bit_depth, psy=psy, kernels=self.kernels)
+
+    def analyze_keyframes(self, frames: list, base_q_idx: int,
+                          mesh=None) -> np.ndarray:
+        """The batched device analysis of a keyframe group: (F, P) packed
+        (J, mode) rows on the host, as device.intra.intra_analysis_batch
+        returns them (unpack with unpack_rd_analysis at
+        self.keyframe_depths()). The frames go over the dp axis of `mesh`
+        (by default self.mesh) and the superblock rows over its sp axis
+        (device.intra.intra_analysis_sharded)."""
+        return self._launch_keyframes(
+            self._keyframe_inputs(frames, base_q_idx),
+            self._check_mesh(self.mesh if mesh is None else mesh)).numpy()
 
     def encode_keyframes(self, frames: list, base_q_idx: int = 80,
                          mesh=None) -> list[bytes]:
@@ -1390,12 +1492,27 @@ class Av1Encoder:
         holds for every analysis it runs. A group of one frame, or one
         the device analysis cannot take, is encoded frame by frame, each
         analysis over self.mesh. frames: per frame, the list of planes
-        (numpy arrays). Sets self.recons to each frame's reconstruction
-        (what a decoder must output) and self.stage_seconds to wall
-        times: "device_analysis" (upload, lattice, fetch), "frames"
-        (per-frame set-up, partition DP, commit, DLF), "cdef", "finalize"
-        (entropy coding, packing) and "host", the sum of the last
-        three."""
+        (numpy arrays).
+
+        SVT_TPU_GROUP_CHUNK=k (k > 0; unset or 0: one chunk) cuts the
+        analysis into chunks of k frames, as the JAX package does: chunk
+        i + 1 is dispatched before the host commits chunk i, and each
+        chunk's rows are fetched through pinned memory behind an event
+        (ShardedRows.start_fetch), so the commit of chunk i overlaps the
+        device analysis of chunk i + 1. A sharded mesh (any but (1, 1))
+        takes the group in one chunk. On the CPU the TUs are those of one
+        chunk byte for byte; on a card a chunk is a smaller batch, and
+        blk 64's float sums may then move in their last bits
+        (parallel/mesh.py).
+
+        Sets self.recons to each frame's reconstruction (what a decoder
+        must output) and self.stage_seconds to wall times:
+        "device_analysis" (the inputs' preparation, the dispatch of every
+        chunk with its uploads, and the time blocked waiting for a
+        chunk's rows; with chunks, the device time that overlaps the
+        commit is not in it), "frames" (per-frame set-up, partition DP,
+        commit, DLF), "cdef", "finalize" (entropy coding, packing) and
+        "host", the sum of the last three."""
         mesh = self._check_mesh(self.mesh if mesh is None else mesh)
         t0 = time.perf_counter()
         self.recons = []
@@ -1409,14 +1526,35 @@ class Av1Encoder:
                                   "cdef": 0.0, "finalize": 0.0,
                                   "host": host}
             return tus
-        rows = self.analyze_keyframes(frames, base_q_idx, mesh)
-        t1 = time.perf_counter()
+        inputs = self._keyframe_inputs(frames, base_q_idx)
+        n = len(frames)
+        k = int(os.environ.get("SVT_TPU_GROUP_CHUNK", "0")) or n
+        if mesh.shape != (1, 1):
+            k = n
+        chunks = [(s, min(s + k, n)) for s in range(0, n, k)]
+
+        def launch(s, e):
+            return self._launch_keyframes(
+                tuple(a[s:e] for a in inputs[:3]) + inputs[3:],
+                mesh).start_fetch()
+
         bd = self.seq.bit_depth
         group: list = []
-        for i, f in enumerate(frames):
-            self.encode_frame(f, base_q_idx, force_key=True,
-                              _analysis_row=rows[i], _group=group)
-        t2 = time.perf_counter()
+        device_s = frames_s = 0.0
+        t = t0
+        pending = launch(*chunks[0])
+        for ci, (s, e) in enumerate(chunks):
+            nxt = launch(*chunks[ci + 1]) if ci + 1 < len(chunks) else None
+            rows = pending.numpy()   # waits on this chunk's copies only
+            pending = nxt
+            t1 = time.perf_counter()
+            device_s += t1 - t
+            for i in range(s, e):
+                self.encode_frame(frames[i], base_q_idx, force_key=True,
+                                  _analysis_row=rows[i - s], _group=group)
+            t = time.perf_counter()
+            frames_s += t - t1
+        t2 = t
         jobs = [st["cdef_job"] for st in group if st["cdef_job"] is not None]
         if jobs:
             if os.environ.get("SVT_TPU_DEVICE_CDEF") == "1":
@@ -1442,9 +1580,9 @@ class Av1Encoder:
             tus.append(self._finalize_frame(st))
             self.recons.append(self.last_recon)
         t4 = time.perf_counter()
-        self.stage_seconds = {"device_analysis": t1 - t0, "frames": t2 - t1,
-                              "cdef": t3 - t2, "finalize": t4 - t3,
-                              "host": t4 - t1}
+        self.stage_seconds = {"device_analysis": device_s,
+                              "frames": frames_s, "cdef": t3 - t2,
+                              "finalize": t4 - t3, "host": t4 - t2 + frames_s}
         return tus
 
     def _show_existing_tu(self, slot: int) -> bytes:

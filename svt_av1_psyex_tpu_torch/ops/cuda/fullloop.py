@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel svt_av1_psyex_tpu/ops/pallas/fullloop.py
 launches the kernel or raises; on a CPU tensor it runs the plain PyTorch
 version (ops/fullloop_ref.py), because there is no kernel there.
 `launches` counts the kernel launches, so that a run can show that its
-main path went through the kernel.
+main path went through the kernel (`warm_launches` those of a warm-up
+thread: ops/cuda/__init__.py).
 
 The kernel reads its transform matrices from constant memory: they are
 written once per device and size, at the first launch there, from the
@@ -21,11 +22,12 @@ import torch
 
 from ...params import reference_numpy
 from ..fullloop_ref import fullloop_ref
-from . import build
+from . import build, is_warming
 
 SIZES = (4, 8, 16, 32)
 
 launches = 0
+warm_launches = 0
 
 _bound = None
 _ready: set = set()   # (device index, n) whose constants are written
@@ -69,7 +71,7 @@ def fullloop(resid: torch.Tensor, qp6, n: int, log_scale: int,
     = deq_dc, deq_ac, rnd_dc, rnd_ac, zbin_dc, zbin_ac (rnd/zbin
     pre-shifted by log_scale). -> (metrics (B, 8) f32, inv (B, n, n) f32
     or None). Metrics columns: 0 dist, 1 rate (bits<<9), 2 eob, 3 sse."""
-    global launches
+    global launches, warm_launches
     if resid.device.type == "cpu":
         return fullloop_ref(resid, qp6, n, log_scale, want_inv)
     if resid.device.type != "cuda":
@@ -104,5 +106,8 @@ def fullloop(resid: torch.Tensor, qp6, n: int, log_scale: int,
             inv.data_ptr() if want_inv else None,
             torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, err, "launch")
-    launches += 1
+    if is_warming():
+        warm_launches += 1
+    else:
+        launches += 1
     return metrics, inv

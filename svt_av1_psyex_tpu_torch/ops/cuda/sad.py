@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel svt_av1_psyex_tpu/ops/pallas/sad.py
 launches the kernel or raises; on a CPU tensor it runs the plain PyTorch
 version (ops/sad_ref.py), because there is no kernel there. `launches`
 counts the kernel launches, so that a run can show that its main path
-went through the kernel.
+went through the kernel (`warm_launches` those of a warm-up thread:
+ops/cuda/__init__.py).
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ import ctypes
 import torch
 
 from ..sad_ref import BLK, NOFF, SPAN, sad_lattice_ref
-from . import build
+from . import build, is_warming
 
 launches = 0
+warm_launches = 0
 
 _bound = None
 
@@ -39,7 +41,7 @@ def sad_lattice(tiles: torch.Tensor, wins: torch.Tensor) -> torch.Tensor:
     """tiles (nSB, 64, 64) int32, wins (nSB, 80, 80) int32 (gathered with
     spec MC edge clamping) -> (nSB, 289, 8, 8) int32 SAD lattice, offset
     index dy * 17 + dx."""
-    global launches
+    global launches, warm_launches
     if tiles.device.type == "cpu" and wins.device.type == "cpu":
         return sad_lattice_ref(tiles, wins)
     if tiles.device.type != "cuda" or wins.device != tiles.device:
@@ -68,5 +70,8 @@ def sad_lattice(tiles: torch.Tensor, wins: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("sad_lattice kernel launch failed: "
                            + lib.svt_cuda_error_string(err).decode())
-    launches += 1
+    if is_warming():
+        warm_launches += 1
+    else:
+        launches += 1
     return out

@@ -128,8 +128,32 @@ class ShardedRows:
         self.fields = fields      # (k, nbx) per field
         self.n_frames = n_frames
         self.sb_rows = sb_rows
+        self._events: list = []   # start_fetch's copies, one per CUDA shard
+
+    def start_fetch(self) -> "ShardedRows":
+        """Queue each CUDA shard's copy into pinned host memory behind its
+        analysis, and an event after the copy. numpy() then waits on
+        those events only: a plain .cpu() would also wait for whatever
+        was queued on the stream after this call (the next chunk of a
+        keyframe group). CPU shards are on the host already."""
+        shards = []
+        for fr, rr, part in self.shards:
+            if part.device.type == "cuda":
+                host = torch.empty(part.shape, dtype=part.dtype,
+                                   pin_memory=True)
+                with torch.cuda.device(part.device):
+                    host.copy_(part, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record()
+                self._events.append(ev)
+                part = host
+            shards.append((fr, rr, part))
+        self.shards = shards
+        return self
 
     def numpy(self) -> np.ndarray:
+        for ev in self._events:
+            ev.synchronize()
         size = sum(self.sb_rows * k * nbx for k, nbx in self.fields)
         out = np.empty((self.n_frames, size), np.float32)
         for (f0, f1), (r0, r1), part in self.shards:

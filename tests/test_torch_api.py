@@ -213,3 +213,19 @@ def test_handle_wrappers_and_device_required():
     assert svt_av1_get_version()
     with pytest.raises(ValueError):
         SvtAv1Encoder(device="cpu", kernels="fast")
+
+
+def test_host_tf_switch_packets_byte_identical(monkeypatch):
+    """Under SVT_TPU_HOST_TF=1 both packages filter on the host loop
+    (codec/tf.py): the port's packets equal the JAX package's, on a
+    shorter clip (keyframe and ARF filters both run)."""
+    from svt_av1_psyex_tpu.api.encoder import SvtAv1Encoder as JaxEncoder
+
+    monkeypatch.setenv("SVT_TPU_HOST_TF", "1")
+    w, h, n = 128, 64, 6
+    frames = _frames(n, w, h)
+    port = _configure(_recording_encoder(), w, h, recon=False)
+    pkts, _ = _encode(port, frames)
+    ref, _ = _encode(_configure(JaxEncoder(), w, h, recon=False), frames)
+    assert port.tf_calls[:2] == [3, 3]
+    assert [(p.pts, p.data) for p in pkts] == [(p.pts, p.data) for p in ref]

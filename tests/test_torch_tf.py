@@ -128,3 +128,24 @@ def test_denoises():
     before = np.mean((frames[0][0].astype(np.float64) - base) ** 2)
     after = np.mean((out[0].astype(np.float64) - base) ** 2)
     assert after < 0.7 * before, (before, after)
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10], ids=["8bit", "10bit"])
+@pytest.mark.parametrize("nbrs", [3, 6])
+def test_host_tf_switch_planes_equal(nbrs, bit_depth, monkeypatch):
+    """SVT_TPU_HOST_TF=1 selects the per-block host filter in both
+    packages (the JAX package's codec/tf.py second opinion): the port's
+    filtered planes equal the JAX package's under the switch, and the
+    switch really changes the filter."""
+    frames = clip(nbrs + 1, bit_depth)
+    device = port_codec_tf.temporal_filter(frames[0], frames[1:], QINDEX,
+                                           bit_depth, device="cpu")
+    monkeypatch.setenv("SVT_TPU_HOST_TF", "1")
+    want = jax_codec_tf.temporal_filter(frames[0], frames[1:], QINDEX,
+                                        bit_depth)
+    got = port_codec_tf.temporal_filter(frames[0], frames[1:], QINDEX,
+                                        bit_depth, device="cpu")
+    for p, (g, w, src) in enumerate(zip(got, want, frames[0])):
+        assert g.dtype == src.dtype and g.shape == src.shape, p
+        assert np.array_equal(g, w), p
+    assert any(not np.array_equal(g, d) for g, d in zip(got, device))

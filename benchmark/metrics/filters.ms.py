@@ -1,0 +1,13 @@
+"""The in-loop filters: deblocking, CDEF and loop restoration, in
+milliseconds per frame coded in the traced window.
+
+From the port's stage clock (SVT_TPU_TIMING=1): the `dlf`, `cdef` and
+`lr` stages (LR only at presets <= 6)."""
+
+
+def read(record):
+    st = record["stages"]
+    keys = ("dlf", "cdef", "lr")
+    if not record["frames"] or not any(k in st for k in keys):
+        return None
+    return sum(st.get(k, 0.0) for k in keys) * 1e3 / record["frames"]

@@ -96,8 +96,8 @@ failure raises and the script exits non-zero without a result:
    loop-restoration stacks), then a timed run with the kernels (the
    main path of this phase, counts set to 0 before it and read after
    it) and, second, one with kernels="plain", under SVT_TPU_TIMING=1;
-   the phase line names that order. The TUs must agree as in phase 7. fps, stage seconds (lr_build, lr_up,
-   lr_wd, lr_sg, lr_exact, cdef among them), the per-frame qindex, the
+   the phase line names that order. The TUs must agree as in phase 7. fps, stage seconds (lr.build,
+   lr.exact, cdef among them), the per-frame qindex, the
    loop-restoration frame types per frame and plane, launches, bytes.
    Then the LR search's device tier alone on the warm-up keyframe's
    three planes, on the card and on the CPU: taps, best SSE and
@@ -1169,8 +1169,7 @@ def phase_config3(device) -> dict:
           "config 3: expected a non-empty packet per TU, the same count in "
           "both runs, and a recon per frame")
     stage = {k: round(v, 4) for k, v in enc.timing.items()}
-    for key in ("tf", "tpl", "cdef", "lr_build", "lr_up", "lr_wd", "lr_sg",
-                "lr_exact"):
+    for key in ("tf", "tpl", "cdef", "lr.build", "lr.exact"):
         check(key in stage, f"config 3: {key} missing from the stage "
               "seconds")
     qk, qp_, diff = kernel_vs_plain("config 3", api_k, pk, api_p, pp)

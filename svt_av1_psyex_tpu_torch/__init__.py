@@ -21,8 +21,9 @@ torch and never jax:
 * bitstream/, conformance/, utils/  OBUs, the range coder and syntax
            writers; the dav1d harness; y4m/IVF I/O and logging;
 * native/  ctypes bindings of the C host tier (native/*.c at the
-           repository root) and the dav1d shim, built with gcc at first
-           use into build/torch_native/.
+           repository root, with the port's own copy of ecenc.c, the
+           range coder with work counts) and the dav1d shim, built with
+           gcc at first use into build/torch_native/.
 
 The host tier is the port's own copy of the JAX package's jax-free
 modules, under the same relative paths: the port imports nothing of

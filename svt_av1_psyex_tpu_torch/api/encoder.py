@@ -50,10 +50,6 @@ __all__ = ["EncoderConfig", "Packet", "Recon", "SvtAv1Encoder",
            "svt_psy_get_version"]
 
 
-def _timing() -> bool:
-    return os.environ.get("SVT_TPU_TIMING") == "1"
-
-
 class SvtAv1Error(Exception):
     pass
 
@@ -301,7 +297,7 @@ class SvtAv1Encoder:
         out = temporal_filter(planes, nbrs, self.config.qindex,
                               self.config.encoder_bit_depth,
                               strength=strength, device=self.device)
-        if _timing():
+        if self._enc.timed:
             self._enc._tick("tf", t0)
         return out
 
@@ -607,7 +603,7 @@ class SvtAv1Encoder:
                     look = [look[j] for j in range(stride - 1, group_sz,
                                                    stride)]
                 tpl = self._run_tpl(look, self.config.qindex)
-                if _timing():
+                if self._enc.timed:
                     self._enc._tick("tpl", _t0)
                 cfg_q = self.config.qindex
                 bd = self.config.encoder_bit_depth

@@ -79,6 +79,7 @@ class EntropyEncoder:
         self._rng = PROB_TOP  # in [2^15, 2^16)
         self._wbits = 15  # valid bits in the low window
         self._nbits_total = 15
+        self._n_symbols = 0
 
     # -- internals ----------------------------------------------------------
     def _propagate_carry(self) -> None:
@@ -111,6 +112,7 @@ class EntropyEncoder:
     # -- public -------------------------------------------------------------
     def encode_symbol(self, symbol: int, cdf: np.ndarray) -> None:
         """Encode `symbol` using a spec-orientation CDF (no adaptation)."""
+        self._n_symbols += 1
         n = len(cdf)
         r = self._rng
         c_prev = r if symbol == 0 else _interval(r, int(cdf[symbol - 1]), n - symbol)
@@ -135,6 +137,12 @@ class EntropyEncoder:
         """n equiprobable bits, MSB first (spec L(n))."""
         for i in range(n - 1, -1, -1):
             self.encode_symbol((value >> i) & 1, _BOOL_HALF_CDF)
+
+    def counts(self) -> tuple[int, int]:
+        """(symbols coded, each bit of a literal one; calls into a native
+        coder, none here) so far: native.ecenc.NativeEntropyEncoder's
+        counts."""
+        return self._n_symbols, 0
 
     def done(self) -> bytes:
         """Terminate and return the coded payload.

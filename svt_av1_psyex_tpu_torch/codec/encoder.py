@@ -144,6 +144,9 @@ class Av1Encoder:
         self.kernels = check_kernels(kernels)
         self.mesh = self._check_mesh(mesh)
         self.stage_seconds: dict = {}
+        # the stage clock (_tick, _note): SVT_TPU_TIMING=1, read once here
+        self.timed = os.environ.get("SVT_TPU_TIMING") == "1"
+        self.timing: dict = {}
         self._warm_thread = None   # warm_device's thread, until joined
         self._warm_error = None    # what it raised
         self.seq = seq
@@ -436,18 +439,14 @@ class Av1Encoder:
         precomputed device MD lattice row; `_group` is a list collector —
         when set, CDEF search and the bitstream pass are deferred (the
         state dict is appended and returned instead of TU bytes)."""
-        import os as _os
-        import time as _time
-
         self.join_warm()
-        _timing = _os.environ.get("SVT_TPU_TIMING") == "1"
-        _t0 = _time.perf_counter() if _timing else 0.0
+        t0 = time.perf_counter() if self.timed else 0.0
         try:
             return self._begin_frame_impl(planes, base_q_idx, force_key,
                                           plan, _analysis_row, _group)
         finally:
-            if _timing:
-                self._tick("begin", _t0)
+            if self.timed:
+                self._tick("begin", t0)
 
     def _begin_frame_impl(self, planes, base_q_idx=80, force_key=False,
                           plan=None, _analysis_row=None, _group=None):
@@ -881,6 +880,7 @@ class Av1Encoder:
         if use_device or use_device_inter:
             from .md_device import DeviceInterMD, DeviceIntraMD
 
+            t0 = time.perf_counter() if self.timed else 0.0
             if use_device_inter:
                 dmd = DeviceInterMD(md, seq, fr, sb_qmap,
                                     ref_names=sorted(ref_planes),
@@ -892,6 +892,8 @@ class Av1Encoder:
                                     kernels=self.kernels, mesh=self.mesh)
                 if _analysis_row is None:
                     dmd.analyze_dispatch()
+            if self.timed:
+                self._note("begin.dispatch", time.perf_counter() - t0)
         return {"fr": fr, "tw": tw, "cdfs": cdfs, "pctx": pctx, "md": md,
                 "dmd": dmd, "sb_qmap": sb_qmap, "ref_planes": ref_planes,
                 "n_tiles": n_tiles, "sb_mi": sb_mi, "sb_bsize": sb_bsize,
@@ -899,27 +901,44 @@ class Av1Encoder:
                 "analysis_row": _analysis_row, "group": _group}
 
     def _tick(self, key: str, t0: float) -> float:
-        """SVT_TPU_TIMING=1 stage profiler: accumulate seconds per stage
-        into self.timing (the JAX-profiler-lite of SURVEY §5 tracing)."""
-        import time
+        """The stage clock (on when SVT_TPU_TIMING=1 at construction:
+        `self.timed`): closes the span of the top-level stage `key`,
+        opened at `t0` on time.perf_counter, adds its seconds to
+        self.timing[key] and returns the time it closed.
 
+        Every top-level stage's span closes here, and no two top-level
+        spans overlap, so a caller that wraps this attribute sees each
+        host interval once, under one stage. Parts of a stage and counts
+        go through `_note` and open no span: a key with a dot names a
+        part of the stage before the dot, in seconds ("lr.build" of
+        "lr"); a key starting "n." is a count, not seconds."""
         t1 = time.perf_counter()
-        tm = getattr(self, "timing", None)
-        if tm is None:
-            tm = self.timing = {}
-        tm[key] = tm.get(key, 0.0) + (t1 - t0)
+        self.timing[key] = self.timing.get(key, 0.0) + (t1 - t0)
         return t1
+
+    def _note(self, key: str, amount) -> None:
+        """Adds `amount` to self.timing[key], with no span (`_tick`)."""
+        self.timing[key] = self.timing.get(key, 0) + amount
+
+    def _finish_tile(self, tw) -> bytes:
+        """The tile's coded payload; under the stage clock its coder's
+        symbols and entries from Python are added to "n.ec_symbols" and
+        "n.ec_calls"."""
+        payload = tw.finish()
+        if self.timed:
+            symbols, calls = tw.enc.counts()
+            self._note("n.ec_symbols", symbols)
+            if calls:
+                self._note("n.ec_calls", calls)
+        return payload
 
     def resume_frame(self, st: dict):
         """Second half of a frame encode: fetch the device lattice,
         argmin + conformant commit, in-loop filters, then the bitstream
         pass (or group deferral). Must run in coding order."""
-        import os
-        import time
-
         from .rd import compute_rdmult
 
-        timing = os.environ.get("SVT_TPU_TIMING") == "1"
+        timing = self.timed
         t0 = time.perf_counter() if timing else 0.0
 
         seq = self.seq
@@ -969,22 +988,26 @@ class Av1Encoder:
             dmd.plan_frame(rdg)
             for r in range(0, self.mi_rows, sb_mi):
                 for c in range(0, self.mi_cols, sb_mi):
-                    if sb_qmap is not None:
-                        md.cur_qindex = int(sb_qmap[r // sb_mi, c // sb_mi])
-                        md.rdmult = compute_rdmult(md.cur_qindex, seq.bit_depth)
-                    plan = dmd.extract_plan(r, c, sb_bsize)
-                    if use_frame_c:
-                        plans.append((plan, r, c, md.cur_qindex))
-                    else:
-                        node = dmd._commit_plan(plan, r, c)
-                        sb_plans.append((node, r, c))
+                    q = (md.cur_qindex if sb_qmap is None
+                         else int(sb_qmap[r // sb_mi, c // sb_mi]))
+                    plans.append((dmd.extract_plan(r, c, sb_bsize), r, c, q))
             if timing:
                 t0 = self._tick("pick", t0)
             if use_frame_c:
                 fc = native_frame.FrameCommitter(md, seq, fr, ref_planes)
                 sb_plans = fc.commit(plans)
-            if timing:
-                t0 = self._tick("commit", t0)
+                if timing:
+                    t0 = self._tick("commit", t0)
+            else:
+                # the per-leaf host commit, superblocks in coding order,
+                # each at its own q
+                for plan, r, c, q in plans:
+                    if sb_qmap is not None:
+                        md.cur_qindex = q
+                        md.rdmult = compute_rdmult(q, seq.bit_depth)
+                    sb_plans.append((dmd._commit_plan(plan, r, c), r, c))
+                if timing:
+                    t0 = self._tick("commit_leaf", t0)
         elif n_tiles == 1:
             for r in range(0, self.mi_rows, sb_mi):
                 for c in range(0, self.mi_cols, sb_mi):
@@ -1101,8 +1124,6 @@ class Av1Encoder:
                 if timing:
                     t0 = self._tick("cdef", t0)
 
-        if timing:
-            t0 = self._tick("filters", t0)
         st = {"tw": tw, "fr": fr, "cdfs": cdfs, "sb_plans": sb_plans,
               "pctx": pctx, "cdef_job": None, "deblock": deblock_planes}
         if _group is not None:
@@ -1142,10 +1163,7 @@ class Av1Encoder:
     def _finalize_frame(self, st: dict) -> bytes:
         """Bitstream pass + packaging + DPB update (the tail of
         encode_frame; split out so the group pipeline can defer it)."""
-        import os
-        import time
-
-        timing = os.environ.get("SVT_TPU_TIMING") == "1"
+        timing = self.timed
         t0 = time.perf_counter() if timing else 0.0
         seq = self.seq
         tw, fr, cdfs = st["tw"], st["fr"], st["cdfs"]
@@ -1157,7 +1175,7 @@ class Av1Encoder:
         if fr.tile.tile_cols == 1:
             for node, r, c in st["sb_plans"]:
                 tw.write_superblock(node, r, c)
-            tile_payload = tw.finish()
+            tile_payload = self._finish_tile(tw)
         else:
             tile_payload = self._write_tiles(st)
         if timing:
@@ -1269,7 +1287,7 @@ class Av1Encoder:
             for node, r, c in st["sb_plans"]:
                 if c0 <= c < c1:
                     tw_t.write_superblock(node, r, c - c0)
-            payloads.append(tw_t.finish())
+            payloads.append(self._finish_tile(tw_t))
         # tile_group_obu: tile_start_and_end_present_flag = 0 (+ byte
         # alignment), then [tile_size_minus_1 le(n)] payload per non-last
         out = b"\x00"
@@ -1375,7 +1393,8 @@ class Av1Encoder:
             info, restored = search_plane(
                 p.src, p.recon, deblock[i], pw, ph, ss_y, unit,
                 seq.bit_depth, rdm, chroma=i > 0, preset=self.preset,
-                type_costs=tc, device=self.device)
+                type_costs=tc, device=self.device,
+                note=self._note if self.timed else None)
             infos.append(info)
             types.append(info.frame_type)
             if restored is not None:
@@ -1387,16 +1406,6 @@ class Av1Encoder:
         fr.lr_unit_size = unit_y
         fr.lr_uv_shift = uv_shift
         tw.lr_infos = infos
-        import os as _os
-
-        if _os.environ.get("SVT_TPU_TIMING") == "1":
-            from . import restoration as _restmod
-
-            tm = getattr(self, "timing", None) or {}
-            for k, v in _restmod.TICKS.items():
-                tm[k] = tm.get(k, 0.0) + v
-            _restmod.TICKS.clear()
-            self.timing = tm
 
     def grained_output(self) -> list:
         """Display planes for the last emitted frame: recon + film grain

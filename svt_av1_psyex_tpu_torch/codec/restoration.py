@@ -21,6 +21,8 @@ Counterpart: restoration_pick.c (search_wiener :1197, search_sgrproj
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from ..ops.restoration import (
@@ -49,10 +51,6 @@ from ..ops.restoration import (
 from .rd import cdf_costs
 
 SGRPROJ_PARAMS_BITS = 4
-
-# SVT_TPU_TIMING=1 sub-stage accumulator (merged into the encoder's
-# stage profile by Av1Encoder._search_apply_lr)
-TICKS: dict = {}
 
 # default ref xqd (set_default_sgrproj, C trunc-toward-zero division)
 _SGR_XQD_MID = (int((SGRPROJ_PRJ_MIN0 + SGRPROJ_PRJ_MAX0) / 2),
@@ -335,14 +333,17 @@ class RestorationInfo:
 def search_plane(src: np.ndarray, cdef: np.ndarray, deblock: np.ndarray,
                  plane_w: int, plane_h: int, ss_y: int, unit_size: int,
                  bit_depth: int, rdmult: int, chroma: bool, preset: int,
-                 type_costs, device) -> tuple[RestorationInfo,
-                                              np.ndarray | None]:
+                 type_costs, device, note=None) -> tuple[RestorationInfo,
+                                                         np.ndarray | None]:
     """Search one plane; returns (info, restored_plane or None).
 
     type_costs: dict with 'switchable' (3,), 'wiener' (2,), 'sgrproj' (2,)
     symbol costs (x512) from the frame CDF snapshot. device: where the
     candidate scoring runs (torch.device), unless SVT_TPU_HOST_LR=1 asks
-    for the host search.
+    for the host search. note: the calling encoder's stage clock
+    (Av1Encoder._note) or None; the device search adds its host tier's
+    seconds to "lr.build" (the RU stacks and Wiener seeds) and "lr.exact"
+    (the exact evaluation of the winners).
     """
     import os
 
@@ -358,7 +359,7 @@ def search_plane(src: np.ndarray, cdef: np.ndarray, deblock: np.ndarray,
     if os.environ.get("SVT_TPU_HOST_LR") != "1":
         cand = _cand_device(src, cdef, deblock, plane_w, plane_h, ss_y,
                             unit_size, bit_depth, chroma, preset, rows,
-                            cols, rd, sw_c, device)
+                            cols, rd, sw_c, device, note)
     else:
         cand = _cand_host(src, cdef, deblock, plane_w, plane_h, ss_y,
                           bit_depth, chroma, preset, rows, cols, rd,
@@ -369,26 +370,15 @@ def search_plane(src: np.ndarray, cdef: np.ndarray, deblock: np.ndarray,
 
 
 def _cand_device(src, cdef, deblock, plane_w, plane_h, ss_y, unit_size,
-                 bit_depth, chroma, preset, rows, cols, rd, sw_c, device):
+                 bit_depth, chroma, preset, rows, cols, rd, sw_c, device,
+                 note=None):
     """Device-batched candidate scoring: the Wiener init scoring + the
     +-1 steepest descent and the SGR correlations of every RU run on
     `device` (_device_search); the bit-exact striped apply evaluates only
     the single winner per type per RU."""
     from ..ops.restoration import filter_unit_into
 
-    import os as _os
-    import time as _time
-
-    _timing = _os.environ.get("SVT_TPU_TIMING") == "1"
-    _t = _time.perf_counter() if _timing else 0.0
-
-    def _tick(key):
-        nonlocal _t
-        if _timing:
-            now = _time.perf_counter()
-            TICKS[key] = TICKS.get(key, 0.0) + (now - _t)
-            _t = now
-
+    t = time.perf_counter() if note else 0.0
     n_ru = len(rows) * len(cols)
     # actual worst extent of THIS frame's RU grid (last row/col RUs can
     # stretch to 1.5*unit; everything else is unit(+stripe offset)) —
@@ -432,10 +422,12 @@ def _cand_device(src, cdef, deblock, plane_w, plane_h, ss_y, unit_size,
 
     n_rounds = 2 if preset <= 6 else 0
     eps = tuple(_sgr_ep_list(preset))
-    _tick("lr_build")
+    if note:
+        note("lr.build", time.perf_counter() - t)
     taps_np, best_plain, corr = _device_search(
         pads, srcs, masks, init_taps, bit_depth, n_rounds, chroma, eps,
-        device, tick=_tick)
+        device)
+    t = time.perf_counter() if note else 0.0
     state = [(tuple(int(v) for v in taps_np[r, 0]),
               tuple(int(v) for v in taps_np[r, 1])) for r in range(n_ru)]
     corr = corr.astype(np.float64)
@@ -505,33 +497,30 @@ def _cand_device(src, cdef, deblock, plane_w, plane_h, ss_y, unit_size,
                     < rd(entry["wiener"][1], entry["wiener"][0])):
                 ref_s = list(xqd)
         cand.append(entry)
-    _tick("lr_exact")
+    if note:
+        note("lr.exact", time.perf_counter() - t)
     return cand
 
 
 def _device_search(pads, srcs, masks, init_taps, bit_depth, n_rounds,
-                   chroma, eps, device, tick=lambda key: None):
+                   chroma, eps, device):
     """The device tier of the LR search (device/restoration.py) on
     `device`: the Wiener descent and the SGR correlations over all RUs.
     pads/srcs/masks are the int32 RU stacks, init_taps (n_ru, T0, 2, 3)
     int32. Returns numpy (taps (n_ru, 2, 3) int32, best Wiener SSE
-    (n_ru,) int64, correlations (n_ru, len(eps), 6) int64). `tick(key)`
-    is called after the upload ("lr_up") and after each fetch ("lr_wd",
-    "lr_sg"); each fetch waits for its device work."""
+    (n_ru,) int64, correlations (n_ru, len(eps), 6) int64); each fetch
+    waits for its device work."""
     import torch
 
     from ..device.restoration import sgr_corr, wiener_descent
 
     pads_d, srcs_d, masks_d = (torch.from_numpy(a).to(device)
                                for a in (pads, srcs, masks))
-    tick("lr_up")
     taps, best = wiener_descent(pads_d, srcs_d, masks_d,
                                 torch.from_numpy(init_taps), bit_depth,
                                 n_rounds, chroma)
     taps, best = taps.cpu().numpy(), best.cpu().numpy()
-    tick("lr_wd")
     corr = sgr_corr(pads_d, srcs_d, masks_d, eps, bit_depth).cpu().numpy()
-    tick("lr_sg")
     return taps, best, corr
 
 

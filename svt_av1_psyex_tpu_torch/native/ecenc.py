@@ -1,7 +1,9 @@
 """ctypes binding + on-demand build of the C entropy coder (native/ecenc.c).
 
-The C sources are the repository's shared host tier (native/*.c at the
-root, beside neither package); this binding compiles them with gcc into
+The coder is the port's own copy (native/ecenc.c in this package), which
+counts the symbols it codes and the calls into it; the other C sources
+are the repository's shared host tier (native/*.c at the root, beside
+neither package). This binding compiles them with gcc into
 build/torch_native/ at the root, which git ignores.
 
 The reference keeps its range coder and packetization in C
@@ -24,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_SRC = _NATIVE_DIR / "ecenc.c"
+_SRC = Path(__file__).resolve().parent / "ecenc.c"
 _SRCS = [_SRC, _NATIVE_DIR / "cdef.c", _NATIVE_DIR / "frame_enc.c",
          _NATIVE_DIR / "mvp.c", _NATIVE_DIR / "rdoq.c"]
 _SO = Path(__file__).resolve().parents[2] / "build" / "torch_native" / "_ecenc.so"
@@ -64,6 +66,9 @@ def get_lib():
                                     ctypes.POINTER(ctypes.c_uint8),
                                     ctypes.c_int64]
         lib.svt_ec_done.restype = ctypes.c_int64
+        lib.svt_ec_counts.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int64)]
+        lib.svt_ec_counts.restype = None
         lib.svt_ec_coeffs.argtypes = [ctypes.c_void_p] + [_I32P] * 3 + [
             ctypes.c_int, _I32P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ] + [_I32P] * 8 + [ctypes.c_int, ctypes.c_int]
@@ -146,6 +151,13 @@ class NativeEntropyEncoder:
             _ptr(base), _ptr(base_cnt), _ptr(beob), _ptr(beob_cnt),
             _ptr(br), _ptr(br_cnt), _ptr(dcs), _ptr(dcs_cnt),
             int(dc_sign_ctx), 1 if adapt else 0))
+
+    def counts(self) -> tuple[int, int]:
+        """(symbols coded, each bit of a literal one; calls into the C
+        coder) so far."""
+        out = (ctypes.c_int64 * 2)()
+        self._lib.svt_ec_counts(self._h, out)
+        return int(out[0]), int(out[1])
 
     def done(self) -> bytes:
         cap = 1 << 16

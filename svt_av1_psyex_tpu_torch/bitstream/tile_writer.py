@@ -14,6 +14,7 @@ reconstruct it.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 
 import numpy as np
 
@@ -171,6 +172,12 @@ class TileWriter:
         self._lr_ref_wiener = [[list(WIENER_TAPS_MID), list(WIENER_TAPS_MID)]
                                for _ in range(3)]
         self._lr_ref_sgr = [[-32, 31] for _ in range(3)]  # mid xqd
+        # superblocks written, and those the C superblock writer wrote
+        # (native/tilewriter.c); its descriptor is built at the first
+        # superblock, once the encoder has set the state above
+        self.n_sbs = 0
+        self.n_sbs_native = 0
+        self._native = None
 
     # ---- symbol helper with adaptation --------------------------------------
     def _sym_at(self, symbol: int, cdf_pair, *idx) -> None:
@@ -202,11 +209,199 @@ class TileWriter:
 
     # ---- superblock entry -----------------------------------------------------
     def write_superblock(self, node: PartitionNode, mi_row: int, mi_col: int) -> None:
+        """Codes one superblock: its loop-restoration units here, then its
+        partition tree in one call of the C writer (native/tilewriter.c)
+        where the coder is the native one and the tree holds no palette
+        or intra block copy leaf, else by the Python walk below. Both
+        walks code the same symbols and keep the same state."""
         sb_bsize = 15 if self.seq.use_128x128_superblock else 12  # B128X128 / B64X64
         self._cur_sb = (mi_row, mi_col)
         self._cdef_coded = False  # clear_cdef: one cdef_idx per 64x64 unit
         self._write_lr(mi_row, mi_col)
+        self.n_sbs += 1
+        if self._native is None:
+            self._native = self._native_setup()
+        if self._native and self._write_sb_native(node, mi_row, mi_col,
+                                                  sb_bsize):
+            self.n_sbs_native += 1
+            return
         self._write_partition_tree(node, mi_row, mi_col, sb_bsize)
+
+    # ---- the C superblock writer (native/tilewriter.c) -----------------------
+    def _native_setup(self):
+        """(lib, descriptor, what the descriptor points into) when the C
+        writer can code this tile's superblocks, else False: the
+        pure-Python coder, intra block copy frames, and a writer without a
+        coefficient writer or with an MiState of other dimensions keep the
+        Python walk."""
+        lib = getattr(self.enc, "_lib", None)
+        if (not self._sym_fast or lib is None
+                or not hasattr(lib, "svt_tw_superblock")
+                or self.fr.allow_intrabc or self.coeff_writer is None):
+            return False
+        mi = self.mi_state
+        if mi is not None:
+            from ..codec.mvp import _mvp_lib
+
+            if (not _mvp_lib() or mi.mi_rows != self.mi_rows
+                    or mi.mi_cols != self.mi_cols):
+                return False
+        keep: list = []
+        desc = np.array(self._native_desc(keep), np.int64)
+        io = np.zeros(1, np.int32)
+        return lib, desc, io, keep
+
+    def _native_desc(self, keep: list) -> list:
+        """The descriptor of native/tilewriter.c (its D_* slots, in order):
+        the frame's flags, the writer's grids, the coefficient contexts,
+        the MiState grids, scan tables and CDF families, as addresses of
+        the arrays this writer owns; read-only maps are copied into
+        `keep`, which lives as long as the descriptor."""
+        fr, seq = self.fr, self.seq
+        i8, u8, i16, i32 = np.int8, np.uint8, np.int16, np.int32
+
+        def addr(a, dtype):
+            if a.dtype != dtype or not a.flags.c_contiguous:
+                raise TypeError(f"the C writer reads a contiguous {dtype}"
+                                f" array here, not {a.dtype}")
+            keep.append(a)
+            return a.ctypes.data
+
+        d = [self.mi_rows, self.mi_cols, self.r0, self.r1, self.c0, self.c1,
+             int(self.adapt), int(bool(seq.use_128x128_superblock)),
+             int(bool(fr.frame_is_intra)), int(bool(fr.delta_q_present)),
+             int(fr.delta_q_res), int(getattr(fr, "cdef_bits", 0)),
+             int(bool(fr.tx_mode_select)), int(bool(fr.reduced_tx_set)),
+             int(fr.base_q_idx), int(bool(fr.allow_screen_content_tools)),
+             int(bool(fr.is_motion_mode_switchable)),
+             int(bool(fr.allow_warped_motion)), int(fr.interp_filter),
+             int(bool(fr.reference_select)), int(fr.order_hint),
+             int(seq.order_hint_bits)]
+        hints = list(getattr(fr, "ref_order_hints", ()))[:7]
+        d += [int(h) for h in hints] + [0] * (7 - len(hints))
+        d += [int(bool(seq.mono_chrome)), int(seq.subsampling_x),
+              int(seq.subsampling_y), int(bool(seq.enable_filter_intra)),
+              int(bool(getattr(seq, "enable_interintra_compound", False))),
+              int(bool(getattr(seq, "enable_masked_compound", False))),
+              int(bool(getattr(seq, "enable_jnt_comp", False)))]
+        gm = getattr(fr, "gm", None)
+        for ref in range(1, 8):
+            e = gm[ref - 1] if gm else None
+            d += ([0] * 7 if e is None
+                  else [int(e[0])] + [int(v) for v in e[1][:6]])
+        d += [addr(a, i8) for a in (self.y_modes, self.skips, self.inters,
+                                    self.flt, self.ref0g, self.ref1g,
+                                    self.cgig, self.cpig, self.pal_size)]
+        d += [addr(a, u8) for a in (self.above_part, self.left_part,
+                                    self.txi_above, self.txi_left,
+                                    self.txp_above, self.txp_left)]
+        d.append(addr(self._seg_map, i8))
+        d += [0 if self.seg_target is None else
+              addr(np.ascontiguousarray(self.seg_target, i8), i8),
+              int(self.seg_last_active)]
+        for m, on in ((self.cdef_fb_map, True),
+                      (self.sb_qindex_map, fr.delta_q_present)):
+            if m is None or not on:
+                d += [0, 0]
+            else:
+                m = np.ascontiguousarray(m, i32)
+                d += [addr(m, i32), m.shape[1]]
+        cw = self.coeff_writer
+        d += [addr(a, u8) for a in (*cw.above, *cw.left)]
+        d += [len(a) for a in (*cw.above, *cw.left)]
+        mi = self.mi_state
+        if mi is None:
+            d += [0] * 16
+        else:
+            d.append(1)
+            d += [addr(a, i8) for a in (mi.ref_frame, mi.ref_frame1)]
+            d += [addr(a, i16) for a in (mi.mv_row, mi.mv_col, mi.mv_row1,
+                                         mi.mv_col1)]
+            d += [addr(a, i8) for a in (mi.is_newmv, mi.is_gmv, mi.flt,
+                                        mi.bsize)]
+            d.append(addr(np.ascontiguousarray(mi.sign_bias, u8), u8))
+            tpl = mi.tpl
+            if tpl is None:
+                d += [0] * 4
+            else:
+                if not hasattr(tpl, "_valid_u8"):
+                    tpl._valid_u8 = tpl.valid.astype(u8)
+                d.append(addr(tpl._valid_u8, u8))
+                d += [addr(a, i16) for a in (tpl.mfmv_row, tpl.mfmv_col,
+                                             tpl.ref_off)]
+        d.append(addr(np.ascontiguousarray(
+            mi.tpl_cur_off if mi is not None else np.zeros(8), i32), i32))
+        d += [addr(t, np.int64) for t in _native_scan_tables()]
+        cdfs = self.cdfs
+        for name in _NATIVE_FAMS:
+            values, counters, nsyms = (
+                cdfs.eob_flag[int(name[8:])] if name.startswith("eob_flag")
+                else getattr(cdfs, name))
+            lead = list(values.shape[:-1]) + [1] * (4 - values.ndim)
+            # a family of one row holds its alphabet size as a scalar
+            d += [addr(values, i32), addr(counters, i32),
+                  addr(np.atleast_1d(np.asarray(nsyms, i32)), i32),
+                  values.shape[-1]] + lead
+        return d
+
+    def _write_sb_native(self, node: PartitionNode, mi_row: int, mi_col: int,
+                         sb_bsize: int) -> bool:
+        """Packs the superblock's coding order into ops and codes it in one
+        C call; False, having coded nothing, where a leaf needs the Python
+        walk (a palette or intra block copy)."""
+        ops: list = []
+        txbs: list = []
+        keep: list = []
+        for leaf, p, r, c, bsize in self._coding_order(node, mi_row, mi_col,
+                                                       sb_bsize):
+            if leaf is None:
+                ops.append((0, r, c, bsize, int(p)) + _OP_PAD)
+            elif not self._pack_block(leaf, r, c, bsize, ops, txbs, keep):
+                return False
+        lib, desc, io, _ = self._native
+        ops_a = np.array(ops, np.int32)
+        txbs_a = np.array(txbs, np.int64).reshape(-1, 8)
+        io[0] = self.prev_qindex
+        rc = lib.svt_tw_superblock(self.enc._h, desc.ctypes.data,
+                                   ops_a.ctypes.data, len(ops),
+                                   txbs_a.ctypes.data, mi_row, mi_col,
+                                   io.ctypes.data)
+        self.prev_qindex = int(io[0])
+        assert rc == 0, f"superblock ({mi_row}, {mi_col}): check {-rc} failed"
+        return True
+
+    @staticmethod
+    def _pack_block(leaf: LeafBlock, r: int, c: int, bsize: int, ops: list,
+                    txbs: list, keep: list) -> bool:
+        """A block op (native/tilewriter.c O_* columns) and its transform
+        blocks' T_* rows; False for a leaf the C writer does not code."""
+        if leaf.palette_colors or leaf.use_intrabc:
+            return False
+        txb0 = len(txbs)
+        if not leaf.skip:
+            assert leaf.coeffs is not None
+            for t in leaf.coeffs:
+                q = t["qcoeff"]
+                if q.dtype != np.int32 or not q.flags.c_contiguous:
+                    q = np.ascontiguousarray(q, np.int32)
+                    keep.append(q)
+                txbs.append((t["plane"], t["plane_bsize"], t["tx_size"],
+                             t["tx_type"], t["eob"], t["ux"], t["uy"],
+                             q.ctypes.data))
+        mv, mv1 = leaf.mv, leaf.mv1
+        ops.append((1, r, c, bsize, 0, leaf.bsize, int(bool(leaf.skip)),
+                    leaf.y_mode, leaf.uv_mode, leaf.angle_delta_y,
+                    leaf.angle_delta_uv, int(bool(leaf.is_inter)),
+                    leaf.ref_frame, leaf.ref_frame1, leaf.inter_mode,
+                    mv[0], mv[1], mv1[0], mv1[1], leaf.drl_index,
+                    leaf.tx_depth, int(bool(leaf.use_filter_intra)),
+                    leaf.filter_intra_mode, leaf.cfl_alpha_u,
+                    leaf.cfl_alpha_v, leaf.interp_filter, leaf.motion_mode,
+                    leaf.comp_group_idx, leaf.compound_idx, leaf.comp_type,
+                    leaf.wedge_index, leaf.wedge_sign, leaf.mask_type,
+                    leaf.interintra_mode, leaf.wedge_interintra, txb0,
+                    len(txbs) - txb0))
+        return True
 
     # ---- segmentation (spec 5.11.15 read_segment_id mirror) -------------------
     def _write_segment_id(self, r: int, c: int, bsize: int,
@@ -431,61 +626,70 @@ class TileWriter:
             self.enc.encode_literal(sign, 1)
 
     def _write_partition_tree(self, node: PartitionNode, r: int, c: int, bsize: int) -> None:
+        for leaf, p, rr, cc, bs in self._coding_order(node, r, c, bsize):
+            if leaf is not None:
+                self._write_block(leaf, rr, cc, bs)
+                continue
+            bw4 = int(BLOCK_W[bs]) >> 2
+            if bw4 > 1:  # is_partition_point (>= 8x8)
+                self._write_partition_symbol(p, rr, cc, bs, bw4,
+                                             int(BLOCK_H[bs]) >> 2)
+            else:
+                assert p == Partition.NONE
+
+    def _coding_order(self, node: PartitionNode, r: int, c: int, bsize: int):
+        """The tree in coding order (spec decode_partition): (None,
+        partition, r, c, bsize) for a node whose partition is coded, then
+        (leaf, None, r, c, bsize) for each of its blocks, children first."""
         if r >= self.r1 or c >= self.c1 or r >= self.mi_rows or c >= self.mi_cols:
             return
         bw4 = int(BLOCK_W[bsize]) >> 2
         bh4 = int(BLOCK_H[bsize]) >> 2
         p = node.partition
-        if bw4 > 1:  # is_partition_point (>= 8x8)
-            self._write_partition_symbol(p, r, c, bsize, bw4, bh4)
-        else:
-            assert p == Partition.NONE
+        yield None, p, r, c, bsize
         if p == Partition.NONE:
-            self._write_block(node.leaf, r, c, bsize)
+            yield node.leaf, None, r, c, bsize
             return
         sub = subsize(p, bsize)
         hw4, hh4 = bw4 // 2, bh4 // 2
         if p == Partition.SPLIT:
             coords = [(r, c), (r, c + hw4), (r + hh4, c), (r + hh4, c + hw4)]
             for child, (rr, cc) in zip(node.children, coords):
-                self._write_partition_tree(child, rr, cc, sub)
-        elif p == Partition.HORZ:
-            self._write_block(node.children[0].leaf, r, c, sub)
+                yield from self._coding_order(child, rr, cc, sub)
+            return
+        if p == Partition.HORZ:
+            blocks = [(r, c, sub)]
             if r + hh4 < self.mi_rows:
-                self._write_block(node.children[1].leaf, r + hh4, c, sub)
+                blocks.append((r + hh4, c, sub))
         elif p == Partition.VERT:
-            self._write_block(node.children[0].leaf, r, c, sub)
+            blocks = [(r, c, sub)]
             if c + hw4 < self.mi_cols:
-                self._write_block(node.children[1].leaf, r, c + hw4, sub)
+                blocks.append((r, c + hw4, sub))
         elif p in (Partition.HORZ_A, Partition.HORZ_B, Partition.VERT_A,
                    Partition.VERT_B):
             # AB layouts (spec decode_partition): two split-squares plus
             # one half rect, in coding order
-            from ..codec.constants import subsize as _subsize
-
-            sq = _subsize(Partition.SPLIT, bsize)
+            sq = subsize(Partition.SPLIT, bsize)
             if p == Partition.HORZ_A:
-                coords = [(r, c, sq), (r, c + hw4, sq), (r + hh4, c, sub)]
+                blocks = [(r, c, sq), (r, c + hw4, sq), (r + hh4, c, sub)]
             elif p == Partition.HORZ_B:
-                coords = [(r, c, sub), (r + hh4, c, sq),
+                blocks = [(r, c, sub), (r + hh4, c, sq),
                           (r + hh4, c + hw4, sq)]
             elif p == Partition.VERT_A:
-                coords = [(r, c, sq), (r + hh4, c, sq), (r, c + hw4, sub)]
+                blocks = [(r, c, sq), (r + hh4, c, sq), (r, c + hw4, sub)]
             else:  # VERT_B
-                coords = [(r, c, sub), (r, c + hw4, sq),
+                blocks = [(r, c, sub), (r, c + hw4, sq),
                           (r + hh4, c + hw4, sq)]
-            for child, (rr, cc, sb) in zip(node.children, coords):
-                self._write_block(child.leaf, rr, cc, sb)
         elif p == Partition.HORZ_4:
-            q4 = bh4 // 4
-            for i, child in enumerate(node.children):
-                self._write_block(child.leaf, r + i * q4, c, sub)
+            blocks = [(r + i * (bh4 // 4), c, sub)
+                      for i in range(len(node.children))]
         elif p == Partition.VERT_4:
-            q4 = bw4 // 4
-            for i, child in enumerate(node.children):
-                self._write_block(child.leaf, r, c + i * q4, sub)
+            blocks = [(r, c + i * (bw4 // 4), sub)
+                      for i in range(len(node.children))]
         else:
             raise NotImplementedError(f"partition {p}")
+        for child, (rr, cc, bs) in zip(node.children, blocks):
+            yield child.leaf, None, rr, cc, bs
 
     def _write_partition_symbol(self, p: int, r: int, c: int, bsize: int,
                                 bw4: int, bh4: int) -> None:
@@ -1515,6 +1719,40 @@ class TileWriter:
 
     def finish(self) -> bytes:
         return self.enc.done()
+
+
+# native/tilewriter.c: a partition op's unused columns (O_WIDTH = 37),
+# and the CDF families in the order of its F_* enum
+_OP_PAD = (0,) * 32
+_NATIVE_FAMS = (
+    "partition", "skip", "spatial_seg", "delta_q", "kf_y_mode", "angle_delta",
+    "uv_mode", "cfl_sign", "cfl_alpha", "y_mode", "intra_inter", "comp_inter",
+    "comp_ref_type", "comp_ref", "comp_bwdref", "single_ref",
+    "inter_compound_mode", "newmv", "zeromv", "refmv", "drl", "nmv_joints",
+    "nmv_sign", "nmv_classes", "nmv_class0", "nmv_bits", "nmv_class0_fp",
+    "nmv_fp", "interintra", "interintra_mode", "wedge_interintra",
+    "wedge_idx", "obmc", "motion_mode", "comp_group_idx", "compound_idx",
+    "compound_type", "switchable_interp", "palette_y_mode",
+    "palette_uv_mode", "filter_intra", "filter_intra_mode", "tx_size",
+    "txfm_partition", "inter_ext_tx", "intra_ext_tx", "txb_skip",
+    "eob_extra", "dc_sign", "coeff_br", "coeff_base", "coeff_base_eob",
+    "eob_flag16", "eob_flag32", "eob_flag64", "eob_flag128", "eob_flag256",
+    "eob_flag512", "eob_flag1024",
+)
+
+
+@lru_cache(maxsize=None)
+def _native_scan_tables():
+    """Addresses of the scan order and nz-context offsets of each tx size
+    and class (int64[19 * 3] each, index tx_size * 3 + class), for
+    native/tilewriter.c; the tables live in coeff_writer's caches."""
+    from .coeff_writer import _nz_offsets, _scan_i32
+
+    kinds = ("default", "mrow", "mcol")  # 2-D, horizontal, vertical
+    return (np.array([_scan_i32(t, kinds[k]).ctypes.data
+                      for t in range(19) for k in range(3)], np.int64),
+            np.array([_nz_offsets(t, k).ctypes.data
+                      for t in range(19) for k in range(3)], np.int64))
 
 
 def txfm_partition_ctx_calc(above_val: int, left_val: int, tx: int,

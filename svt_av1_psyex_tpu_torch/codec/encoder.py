@@ -923,13 +923,16 @@ class Av1Encoder:
     def _finish_tile(self, tw) -> bytes:
         """The tile's coded payload; under the stage clock its coder's
         symbols and entries from Python are added to "n.ec_symbols" and
-        "n.ec_calls"."""
+        "n.ec_calls", its superblocks to "n.ec_sbs" and those the C
+        superblock writer coded to "n.ec_sbs_native"."""
         payload = tw.finish()
         if self.timed:
             symbols, calls = tw.enc.counts()
             self._note("n.ec_symbols", symbols)
             if calls:
                 self._note("n.ec_calls", calls)
+            self._note("n.ec_sbs", tw.n_sbs)
+            self._note("n.ec_sbs_native", tw.n_sbs_native)
         return payload
 
     def resume_frame(self, st: dict):

@@ -16,26 +16,9 @@
  * golomb escapes) so Python only prepares vectorized contexts.
  */
 
-#include <stdint.h>
-#include <stdlib.h>
 #include <string.h>
 
-#define PROB_TOP (1 << 15)
-#define EC_PROB_SHIFT 6
-#define EC_MIN_PROB 4
-
-typedef struct {
-    uint8_t *buf;
-    int64_t len, cap;
-    uint64_t low; /* window value; low + rng <= 2^wbits */
-    uint32_t rng; /* in [2^15, 2^16) */
-    int wbits;
-    /* work counts, read by svt_ec_counts: symbols coded (a literal's or
-       golomb code's bits one each) and calls of the entry points below */
-    int64_t n_symbols, n_calls;
-} EcEnc;
-
-static int bitlen(uint32_t v) { return v ? 32 - __builtin_clz(v) : 0; }
+#include "ecenc.h"
 
 EcEnc *svt_ec_create(void) {
     EcEnc *e = (EcEnc *)calloc(1, sizeof(EcEnc));
@@ -53,96 +36,15 @@ void svt_ec_free(EcEnc *e) {
     }
 }
 
-static void ec_push(EcEnc *e, uint8_t b) {
-    if (e->len == e->cap) {
-        e->cap <<= 1;
-        e->buf = (uint8_t *)realloc(e->buf, e->cap);
-    }
-    e->buf[e->len++] = b;
-}
-
-static void propagate_carry(EcEnc *e) {
-    int64_t i = e->len - 1;
-    while (i >= 0 && e->buf[i] == 0xFF) e->buf[i--] = 0;
-    /* encoder invariant: carry never runs off the stream start */
-    e->buf[i] += 1;
-}
-
-static void add_low(EcEnc *e, uint32_t delta) {
-    e->low += delta;
-    if (e->low >> e->wbits) {
-        e->low &= ((uint64_t)1 << e->wbits) - 1;
-        propagate_carry(e);
-    }
-}
-
-static void normalize(EcEnc *e) {
-    int d = 15 - (bitlen(e->rng) - 1);
-    if (d > 0) {
-        e->rng <<= d;
-        e->low <<= d;
-        e->wbits += d;
-    }
-    while (e->wbits >= 24) {
-        int shift = e->wbits - 8;
-        ec_push(e, (uint8_t)(e->low >> shift));
-        e->low &= ((uint64_t)1 << shift) - 1;
-        e->wbits -= 8;
-    }
-}
-
-static uint32_t interval(uint32_t rng, int32_t cdf_k, int nmk1) {
-    uint32_t f = PROB_TOP - (uint32_t)cdf_k;
-    return (((rng >> 8) * (f >> EC_PROB_SHIFT)) >> 1) + EC_MIN_PROB * (uint32_t)nmk1;
-}
-
-static void enc_symbol(EcEnc *e, const int32_t *cdf, int n, int sym) {
-    uint32_t r = e->rng;
-    e->n_symbols++;
-    uint32_t c_prev = sym == 0 ? r : interval(r, cdf[sym - 1], n - sym);
-    uint32_t c_cur = interval(r, cdf[sym], n - sym - 1);
-    add_low(e, r - c_prev);
-    e->rng = c_prev - c_cur;
-    normalize(e);
-}
-
-static void cdf_adapt(int32_t *cdf, int n, int sym, int32_t *cnt) {
-    int c = *cnt;
-    int l2 = bitlen((uint32_t)n) - 1;
-    int rate = 3 + (c > 15) + (c > 31) + (l2 < 2 ? l2 : 2);
-    for (int i = 0; i < n - 1; i++) {
-        int32_t v = cdf[i];
-        cdf[i] = i < sym ? v - (v >> rate) : v + ((PROB_TOP - v) >> rate);
-    }
-    *cnt = c + (c < 32);
-}
-
-static void ec_symbol(EcEnc *e, int32_t *cdf, int32_t *cnt, int n, int sym,
-                      int adapt) {
-    enc_symbol(e, cdf, n, sym);
-    if (adapt) cdf_adapt(cdf, n, sym, cnt);
-}
-
 void svt_ec_symbol(EcEnc *e, int32_t *cdf, int32_t *cnt, int n, int sym,
                    int adapt) {
     e->n_calls++;
     ec_symbol(e, cdf, cnt, n, sym, adapt);
 }
 
-static const int32_t HALF_CDF[2] = {PROB_TOP >> 1, PROB_TOP};
-
 void svt_ec_literal(EcEnc *e, uint32_t value, int n) {
     e->n_calls++;
-    for (int i = n - 1; i >= 0; i--)
-        enc_symbol(e, HALF_CDF, 2, (value >> i) & 1);
-}
-
-static void write_golomb(EcEnc *e, int32_t level) {
-    uint32_t x = (uint32_t)level + 1;
-    int length = bitlen(x);
-    for (int i = 0; i < length - 1; i++) enc_symbol(e, HALF_CDF, 2, 0);
-    for (int i = length - 1; i >= 0; i--)
-        enc_symbol(e, HALF_CDF, 2, (x >> i) & 1);
+    ec_literal(e, value, n);
 }
 
 void svt_ec_counts(const EcEnc *e, int64_t *out) {
@@ -601,14 +503,14 @@ int32_t svt_txb_commit(const int64_t *d,
  * multi-array marshalling per block.
  * nz_off: per-position (raster, cw*ch) class-specific ctx offsets,
  * precomputed once per tx size/class on the Python side. */
-int64_t svt_ec_txb(EcEnc *e, const int32_t *flat, const int32_t *scan,
-                   int eob, int cw, int ch, int tx_class,
-                   const int32_t *nz_off,
-                   int32_t *base_v, int32_t *base_c,
-                   int32_t *beob_v, int32_t *beob_c,
-                   int32_t *br_v, int32_t *br_c,
-                   int32_t *dcs_v, int32_t *dcs_c, int dc_sign_ctx,
-                   int adapt) {
+int64_t svt_ec_txb_emit(EcEnc *e, const int32_t *flat, const int32_t *scan,
+                        int eob, int cw, int ch, int tx_class,
+                        const int32_t *nz_off,
+                        int32_t *base_v, int32_t *base_c,
+                        int32_t *beob_v, int32_t *beob_c,
+                        int32_t *br_v, int32_t *br_c,
+                        int32_t *dcs_v, int32_t *dcs_c, int dc_sign_ctx,
+                        int adapt) {
     static int32_t levels[(32 + 4) * (32 + 4)];
     static int32_t ctx[32 * 32];
     const int stride = cw + 4;
@@ -649,10 +551,23 @@ int64_t svt_ec_txb(EcEnc *e, const int32_t *flat, const int32_t *scan,
         int si = eob - 1;
         ctx[eob - 1] = si == 0 ? 0 : (si <= n / 8 ? 1 : (si <= n / 4 ? 2 : 3));
     }
-    e->n_calls++;
     return ec_coeffs(e, scan, flat, ctx, eob, levels, stride, bwl,
                      tx_class, base_v, base_c, beob_v, beob_c, br_v,
                      br_c, dcs_v, dcs_c, dc_sign_ctx, adapt);
+}
+
+int64_t svt_ec_txb(EcEnc *e, const int32_t *flat, const int32_t *scan,
+                   int eob, int cw, int ch, int tx_class,
+                   const int32_t *nz_off,
+                   int32_t *base_v, int32_t *base_c,
+                   int32_t *beob_v, int32_t *beob_c,
+                   int32_t *br_v, int32_t *br_c,
+                   int32_t *dcs_v, int32_t *dcs_c, int dc_sign_ctx,
+                   int adapt) {
+    e->n_calls++;
+    return svt_ec_txb_emit(e, flat, scan, eob, cw, ch, tx_class, nz_off,
+                           base_v, base_c, beob_v, beob_c, br_v, br_c,
+                           dcs_v, dcs_c, dc_sign_ctx, adapt);
 }
 
 /* Lane-major variant of svt_net_run: x[i*batch + b] for lane i, batch b.

@@ -7,9 +7,11 @@ neither package). This binding compiles them with gcc into
 build/torch_native/ at the root, which git ignores.
 
 The reference keeps its range coder and packetization in C
-(bitstream_unit.c, entropy_coding.c); this is our counterpart: the
-Python TileWriter prepares contexts/symbols, the C backend does the
-arithmetic coding and the per-txb coefficient emission loop.
+(bitstream_unit.c, entropy_coding.c); this is our counterpart: the C
+backend does the arithmetic coding, and native/tilewriter.c codes a
+whole superblock's syntax from the ops the Python TileWriter packs
+(superblocks it does not cover go through the Python walk symbol by
+symbol).
 
 Falls back to the pure-Python EntropyEncoder (bitstream/ec.py) when the
 toolchain is unavailable or SVT_TPU_PY_EC=1 is set; both backends are
@@ -27,8 +29,10 @@ import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SRC = Path(__file__).resolve().parent / "ecenc.c"
-_SRCS = [_SRC, _NATIVE_DIR / "cdef.c", _NATIVE_DIR / "frame_enc.c",
-         _NATIVE_DIR / "mvp.c", _NATIVE_DIR / "rdoq.c"]
+_SRCS = [_SRC, _SRC.with_name("tilewriter.c"), _NATIVE_DIR / "cdef.c",
+         _NATIVE_DIR / "frame_enc.c", _NATIVE_DIR / "mvp.c",
+         _NATIVE_DIR / "rdoq.c"]
+_DEPS = [*_SRCS, _SRC.with_name("ecenc.h")]
 _SO = Path(__file__).resolve().parents[2] / "build" / "torch_native" / "_ecenc.so"
 
 _lib = None
@@ -52,7 +56,7 @@ def get_lib():
         return _lib
     try:
         if not _SO.exists() or any(_SO.stat().st_mtime < s.stat().st_mtime
-                                   for s in _SRCS):
+                                   for s in _DEPS):
             _build()
         lib = ctypes.CDLL(str(_SO))
         lib.svt_ec_create.restype = ctypes.c_void_p
@@ -77,6 +81,10 @@ def get_lib():
             [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 +
             [ctypes.c_int, ctypes.c_int])
         lib.svt_ec_txb.restype = ctypes.c_int64
+        lib.svt_tw_superblock.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.svt_tw_superblock.restype = ctypes.c_int32
         lib.svt_txb_skip_ctx.restype = ctypes.c_int32
         lib.svt_txb_skip_ctx.argtypes = ([ctypes.c_void_p] * 2 +
                                          [ctypes.c_int] * 5)

@@ -27,7 +27,7 @@ PRESET, CRF, HL = 6, 30, 2
 SPANS = {"tf", "tpl", "begin", "device_wait", "pick", "commit",
          "commit_leaf", "lf_grids", "dlf", "cdef", "lr", "ec"}
 NOTES = {"begin.dispatch", "lr.build", "lr.exact", "n.ec_symbols",
-         "n.ec_calls"}
+         "n.ec_calls", "n.ec_sbs", "n.ec_sbs_native"}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -9,7 +9,7 @@ order, each followed by a "time:" line with its wall seconds; any
 failure raises and the script exits non-zero without a result:
 
 1. device: the card's name and its power limit (nvidia-smi).
-2. build: the hand-written kernels (fullloop, sad), built with nvcc from
+2. build: the hand-written kernels (fullloop, sad, cdef), built with nvcc from
    this checkout, one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card,
    with times of both and the kernel's bound and share of it; for TPL's
@@ -33,6 +33,16 @@ failure raises and the script exits non-zero without a result:
    quarter of a 720p inter candidate (a (1, 4) shard); sad_lattice at a
    720p shard (60 superblocks) and at phase 12's host-MD motion field
    (one 128x96 frame, 4 superblocks).
+   cdef: its three launches (dirs, search, apply) on card tensors against
+   the plain version (ops/cdef_ref.py) on the same tensors, directions,
+   variances, both int64 distortion tables and the filtered planes equal,
+   on the two cells' frames (1280x720 8-bit, 1920x1080 10-bit, search
+   level 5) and on two ragged frames off the filter blocks (200x136 mono
+   at level 1, 104x72 10-bit at level 7); each launch's time, the plain
+   version's and the bound (ops/cuda/roofline.py cdef_bound). Then the
+   kernel's frame runner (ops/cuda/cdef.py CdefFrames, the main path's
+   entry) against the host C (native/cdefc.py): the same result and
+   planes; both whole frames timed on the host's clock.
 4. slice: the config-1 clip (the "blobs" clip of tools/mkclip.py, made by
    svt_av1_psyex_tpu_torch/utils/clips.py; 352x288, 32 frames,
    preset 12, qindex 140) through the port's Av1Encoder.encode_keyframes
@@ -50,7 +60,7 @@ failure raises and the script exits non-zero without a result:
    drives it (codec.encoder.encode_plans: same-layer runs begun, then
    resumed in order). A short warm-up (keyframe + 2-frame mini-GOP, with
    the kernels and with the plain versions), then a run with the kernels
-   (the main path of this phase: both kernels' launch counts are set to 0
+   (the main path of this phase: the kernels' launch counts are set to 0
    before it and read after it) and one with kernels="plain". The TUs
    must agree byte for byte, or each differing frame is printed with its
    per-depth agreement of the winning candidate (>= 0.98). dav1d as in
@@ -72,7 +82,7 @@ failure raises and the script exits non-zero without a result:
    8, CRF 30, everything else at its default (random access, 16-frame
    mini-GOPs, keyframe TF, ARF TF and TPL on). A warm-up on the first 9
    frames (with the kernels and plain), then a timed run with the
-   kernels (the main path of this phase: both kernels' launch counts
+   kernels (the main path of this phase: the kernels' launch counts
    are set to 0 before it and read after it) and one with
    kernels="plain", under SVT_TPU_TIMING=1 ("tf" and "tpl" among the
    stage seconds). The TUs must agree byte for byte; a differing TU
@@ -110,8 +120,8 @@ failure raises and the script exits non-zero without a result:
    SVT_TPU_DEVICE_CDEF=1. On one frame of each, the directions and
    variances (on the card) equal ops/cdef.py find_dir_batch's and the
    filtered coded area equals ops/cdef.py filter_blocks for the chosen
-   strengths; the number of TUs that differ from the native C run of
-   the same phase, and both runs' "cdef" stage seconds.
+   strengths; the number of TUs that differ from the CDEF kernel's run
+   of the same phase, and both runs' "cdef" stage seconds.
 10. intdct: the integer analysis tier (the port's device.intra.
    _USE_MATDCT set to False for the phase and restored after, as
    SVT_TPU_INTDCT=1 sets it at import): phase 5's 720p keyframe +
@@ -162,11 +172,12 @@ failure raises and the script exits non-zero without a result:
    shape to its first packet, each in a fresh process (this script with
    --first-packet): init (which starts no warm-up) and then
    SvtAv1Encoder.warm_device, once as it is and once under
-   SVT_TPU_NO_WARM=1.
+   SVT_TPU_NO_WARM=1 (each kernel's warm-up launches above 0 with the
+   warm-up, 0 without).
 
 Then a JSON line of the kernels ("launches": the counts of the kernel
 runs of phases 7, 8, 10, 11, 6's chunked group and 12 summed,
-"launches_by_path" each of them; a warm-up thread's launches count
+"launches_by_path" each of them, for each of the three kernels; a warm-up thread's launches count
 apart, in the wrappers' warm_launches;
 fullloop "ms"/"plain_ms": its device time summed over its launches in
 one 1080p 16-frame analysis, "bound_ms" the sum of those launches'
@@ -174,8 +185,10 @@ bounds, "max_abs_err": the largest |inverse residual| difference
 against the plain version over every compared block; sad
 "ms"/"plain_ms"/"bound_ms": one launch at one 720p frame's 240
 superblocks, "max_abs_err": the largest difference over every compared
-lattice, 0 when bit-exact; "library_ms" null: no single PyTorch call
-computes either function), the nvidia-smi line, and last
+lattice, 0 when bit-exact; cdef "ms"/"plain_ms"/"bound_ms": its three
+launches on one 720p 8-bit frame summed, "max_abs_err" 0: every output
+is required equal; "library_ms" null: no single PyTorch call computes
+any of the three functions), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. A bound is the least time an H100 SXM
 could take for the same work (ops/cuda/roofline.py): the larger of the
 bytes moved over 3.35 TB/s and the operations over the fp32 FMA or int32
@@ -230,9 +243,11 @@ HOST_MD_ME = dict(w=128, h=96)
 # tests/test_torch_host_paths*.py and tests/test_torch_film_grain.py
 HOST_MD_PATHS = ("4:4:4 GOP", "2-tile inter GOP", "mono p6 GOP",
                  "screen-content keyframe", "film grain p4 10-bit")
-KERNELS = ("fullloop", "sad")
+KERNELS = ("fullloop", "sad", "cdef")
 REPLACES = {"fullloop": "svt_av1_psyex_tpu/ops/pallas/fullloop.py:151",
-            "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69"}
+            "sad": "svt_av1_psyex_tpu/ops/pallas/sad.py:69",
+            # the JAX package's CDEF is no Pallas kernel
+            "cdef": "none: native/cdef.c"}
 SOURCES = {name: f"svt_av1_psyex_tpu_torch/ops/cuda/{name}.cu"
            for name in KERNELS}
 
@@ -504,6 +519,165 @@ def phase_sad(device) -> dict:
     return {"max_abs_err": worst, **out}
 
 
+# phase 3's CDEF frames: (mi rows, mi cols, bit depth, share of the
+# mode-info cells skipped, search level, planes): the two cells' frames at
+# their preset's level, and two ragged ones off the 64x64 filter blocks at
+# the levels of presets <= 1 (64 candidates, no subsampling; mono) and
+# >= 9 (4 candidates, every fourth unit)
+CDEF_FRAMES = {"720p-8bit": (180, 320, 8, 0.1, 5, 3),
+               "1080p-10bit": (270, 480, 10, 0.6, 5, 3),
+               "off-tile-mono-level1": (34, 50, 8, 0.3, 1, 1),
+               "off-tile-10bit-level7": (18, 26, 10, 0.2, 7, 3)}
+
+
+def cdef_frame(mi_rows: int, mi_cols: int, bit_depth: int, skip: float,
+               nplanes: int, seed: int = 1):
+    """A smooth source (a sine pattern), its recon with noise of +-6 at 8
+    bits, and a random skip grid: int32 planes as the encoder holds them
+    (chroma 4 samples wider and taller than half the luma)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    maxv = (1 << bit_depth) - 1
+    h, w = mi_rows * 4, mi_cols * 4
+    src = []
+    for sh in [(h, w)] + [(h // 2 + 4, w // 2 + 4)] * (nplanes - 1):
+        yy, xx = np.mgrid[0:sh[0], 0:sh[1]]
+        wave = 0.5 + 0.3 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
+        src.append((wave * maxv).astype(np.int32))
+    amp = 6 << (bit_depth - 8)
+    recon = [np.clip(s + rng.integers(-amp, amp + 1, s.shape), 0,
+                     maxv).astype(np.int32) for s in src]
+    skip_g = (rng.random((mi_rows, mi_cols)) < skip).astype(np.uint8)
+    return recon, src, skip_g
+
+
+def phase_cdef(device) -> dict:
+    """Phase 3, CDEF: the kernel's three launches against its plain
+    version on the card, then the frame runner against the host C; all
+    bit-exact. Times and bounds of each launch, and the whole frame on
+    the host's clock."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psyex_tpu_torch.device.cdef import _select_strengths
+    from svt_av1_psyex_tpu_torch.native import cdefc
+    from svt_av1_psyex_tpu_torch.ops.cdef import candidate_strengths
+    from svt_av1_psyex_tpu_torch.ops.cdef_ref import search_units, unit_mask
+    from svt_av1_psyex_tpu_torch.ops.cuda.cdef import CdefFrames
+    from svt_av1_psyex_tpu_torch.ops.cuda.roofline import cdef_bound
+    from svt_av1_psyex_tpu_torch.runtime import cdef_impl
+
+    def rd_fn(rate, dist):
+        return dist + rate
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def host_ms(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out = {}
+    for label, (mi_rows, mi_cols, bd, skip, level, nplanes) in (
+            CDEF_FRAMES.items()):
+        cs, q = bd - 8, 160
+        damping = 3 + (q >> 6)
+        ydamp, cdamp = damping + cs, max(0, damping + cs - 1)
+        recon, src, skip_g = cdef_frame(mi_rows, mi_cols, bd, skip, nplanes)
+        mask = unit_mask(skip_g, mi_rows, mi_cols)
+        grid, coded = mask.shape, (mi_rows * 4, mi_cols * 4)
+        units_np = search_units(mask, level)
+        cands_np = np.asarray(candidate_strengths(level), np.int32)
+        planes, srcs = [up(p) for p in recon], [up(p) for p in src]
+        units, cands, mask_t = up(units_np), up(cands_np), up(mask)
+        nvfb, nhfb = grid[0] // 8, grid[1] // 8
+        calls, results = {}, {}
+        for kernels in ("hand", "plain"):
+            dirs_fn, search_fn, apply_fn = cdef_impl(kernels)
+            dirs, var = dirs_fn(planes[0], coded, grid, cs)
+            mse0, mse1 = search_fn(planes, srcs, coded, units, grid, dirs,
+                                   var, cands, ydamp, cdamp, cs)
+            if kernels == "hand":   # both apply the kernel's choice
+                _, _, _, _, y_gi, uv_gi = _select_strengths(
+                    mse0.cpu().numpy().astype(np.float64),
+                    mse1.cpu().numpy().astype(np.float64), mask, nvfb, nhfb,
+                    [int(c) for c in cands_np], rd_fn)
+                y_gi_t, uv_gi_t = up(y_gi.astype(np.int32)), up(
+                    uv_gi.astype(np.int32))
+            filtered = apply_fn(planes, coded, mask_t, dirs, var, y_gi_t,
+                                uv_gi_t, ydamp, cdamp, cs)
+            results[kernels] = [dirs, var, mse0, mse1, *filtered]
+            calls[kernels] = {
+                "dirs": lambda f=dirs_fn: f(planes[0], coded, grid, cs),
+                "search": lambda f=search_fn, d=dirs, v=var: f(
+                    planes, srcs, coded, units, grid, d, v, cands, ydamp,
+                    cdamp, cs),
+                "apply": lambda f=apply_fn, d=dirs, v=var: f(
+                    planes, coded, mask_t, d, v, y_gi_t, uv_gi_t, ydamp,
+                    cdamp, cs)}
+        torch.cuda.synchronize()
+        names = ["dirs", "var", "mse0", "mse1"] + [
+            f"plane {k}" for k in range(nplanes)]
+        for name, a, b in zip(names, results["hand"], results["plain"]):
+            check(a.shape == b.shape and torch.equal(a, b),
+                  f"cdef {label}: the kernel's {name} differs from the "
+                  f"plain version's")
+        ms = {k: {stage: cuda_ms(fn, reps=20 if k == "hand" else 3)
+                  for stage, fn in calls[k].items()} for k in calls}
+        msk = mask.reshape(-1).astype(bool)
+        bnd = cdef_bound(coded, units_np.size, cands_np, y_gi[msk],
+                         uv_gi[msk], nplanes > 1)
+        frames = {"kernel": CdefFrames(device, "hand").search_frame,
+                  "C": cdefc.cdef_search_frame_c}
+        got = {}
+        for who, fn in frames.items():
+            rec = [p.copy() for p in recon]
+            got[who] = (fn(rec, src, skip_g, mi_rows, mi_cols, q, rd_fn,
+                           level=level, bit_depth=bd), rec)
+        (res_k, rec_k), (res_c, rec_c) = got["kernel"], got["C"]
+        check(res_k[:3] == res_c[:3] and res_k[4] == res_c[4]
+              and np.array_equal(res_k[3], res_c[3])
+              and all(np.array_equal(a, b) for a, b in zip(rec_k, rec_c)),
+              f"cdef {label}: the frame runner's result or planes differ "
+              f"from the host C's")
+        frame_ms = {who: host_ms(lambda fn=fn: fn(
+            [p.copy() for p in recon], src, skip_g, mi_rows, mi_cols, q,
+            rd_fn, level=level, bit_depth=bd), 10 if who == "kernel" else 2)
+            for who, fn in frames.items()}
+        print(f"kernels: cdef {label} ({coded[1]}x{coded[0]}, {bd}-bit, "
+              f"level {level}, {len(cands_np)} candidates, "
+              f"{units_np.size} units searched, {int(msk.sum())} filtered, "
+              f"{nplanes} planes): dirs, var, mse0, mse1 and planes "
+              f"bit-exact with the plain version, the frame runner's with "
+              f"the C; "
+              + "; ".join(
+                  f"{stage} {ms['hand'][stage]:.4f} ms vs plain "
+                  f"{ms['plain'][stage]:.4f} ms, bound "
+                  f"{bnd[stage]['bound_ms']:.4f} ms "
+                  f"({bnd[stage]['bound_by']}), "
+                  f"{bnd[stage]['bound_ms'] / ms['hand'][stage]:.1%} of it"
+                  for stage in ("dirs", "search", "apply"))
+              + f"; the whole frame on the host's clock: frame runner "
+              f"{frame_ms['kernel']:.3f} ms, host C {frame_ms['C']:.3f} ms",
+              flush=True)
+        if label == "720p-8bit":
+            tot = {k: sum(b[k] for b in bnd.values())
+                   for k in ("bound_ms", "bytes_ms", "ops_ms")}
+            out = {"ms": sum(ms["hand"].values()),
+                   "plain_ms": sum(ms["plain"].values()),
+                   "bound_ms": tot["bound_ms"],
+                   "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                                else "operations")}
+        del planes, srcs, results, calls
+        torch.cuda.empty_cache()
+    # every compared output was required to be equal
+    return {"max_abs_err": 0, **out}
+
+
 def make_frames(cfg: dict) -> list:
     from svt_av1_psyex_tpu_torch.streams import VideoFormat
     from svt_av1_psyex_tpu_torch.utils.clips import synth_frame
@@ -687,21 +861,15 @@ def decision_agreement(dk, dp) -> dict:
 def phase_inter(device) -> dict:
     """Phase 5: config 2's shape without TF and TPL through the port,
     kernels vs plain. Returns the clip, the kernel run's TUs and its
-    "cdef" stage seconds (the native C backend), for phase 9."""
-    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
-    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
-
+    "cdef" stage seconds (the CDEF kernel), for phase 9."""
     cfg = INTER
     frames = make_frames(cfg)
     for kernels in ("hand", "plain"):   # first-use loads, allocations
         encode_gop(frames, cfg["warmup_gop"], cfg, device, kernels)
     os.environ["SVT_TPU_TIMING"] = "1"  # the host tier's stage clock
     try:
-        cuda_fullloop.launches = cuda_sad.launches = 0
-        enc_k, tus_k, rec_k, dt_k, coded = encode_gop(
-            frames, cfg["gop"], cfg, device, "hand")
-        launches = {"fullloop": cuda_fullloop.launches,
-                    "sad": cuda_sad.launches}
+        (enc_k, tus_k, rec_k, dt_k, coded), launches = counted(
+            lambda: encode_gop(frames, cfg["gop"], cfg, device, "hand"))
         enc_p, tus_p, _, dt_p, _ = encode_gop(frames, cfg["gop"], cfg,
                                               device, "plain")
     finally:
@@ -742,7 +910,7 @@ def phase_inter(device) -> dict:
 def phase_hd(device) -> dict:
     """Phase 6: 1080p all-intra, warm-up then a timed encode; then the
     device analysis alone, kernels vs plain. Returns the clip, the TUs
-    and the "cdef" stage seconds (the native C backend), for phase 9."""
+    and the "cdef" stage seconds (the CDEF kernel), for phase 9."""
     from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
 
     frames = make_frames(HD)
@@ -1013,9 +1181,6 @@ def phase_config2(device) -> dict:
     """Phase 7: config 2 through the port's SvtAv1Encoder, kernels vs
     plain; TPL on the card; the CLI. Returns the kernel run's launch
     counts (the main path of this phase)."""
-    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
-    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
-
     cfg = CONFIG2
     frames = make_frames(cfg)
     # warm-up: the CLI's frames, with the kernels (kept for the CLI
@@ -1025,11 +1190,8 @@ def phase_config2(device) -> dict:
     api_encode(head, cfg, device, "plain")
     os.environ["SVT_TPU_TIMING"] = "1"  # stage clock: tf, tpl, host tier
     try:
-        cuda_fullloop.launches = cuda_sad.launches = 0
-        api_k, pk, rec_k, dt_k = api_encode(frames, cfg, device, "hand",
-                                            recon=True)
-        launches = {"fullloop": cuda_fullloop.launches,
-                    "sad": cuda_sad.launches}
+        (api_k, pk, rec_k, dt_k), launches = counted(
+            lambda: api_encode(frames, cfg, device, "hand", recon=True))
         api_p, pp, _, dt_p = api_encode(frames, cfg, device, "plain")
     finally:
         del os.environ["SVT_TPU_TIMING"]
@@ -1131,8 +1293,6 @@ def phase_config3(device) -> dict:
     plain; the LR search alone, card vs CPU; dav1d on the keyframe.
     Returns the kernel run's launch counts (the main path of this
     phase)."""
-    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
-    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
     from svt_av1_psyex_tpu_torch.streams import dav1d_loads, dav1d_mismatches
 
     cfg = CONFIG3
@@ -1148,11 +1308,8 @@ def phase_config3(device) -> dict:
           "the ARF's")
     os.environ["SVT_TPU_TIMING"] = "1"  # stage clock, LR's sub-stages
     try:
-        cuda_fullloop.launches = cuda_sad.launches = 0
-        api_k, pk, rec_k, dt_k = api_encode(frames, cfg, device, "hand",
-                                            recon=True)
-        launches = {"fullloop": cuda_fullloop.launches,
-                    "sad": cuda_sad.launches}
+        (api_k, pk, rec_k, dt_k), launches = counted(
+            lambda: api_encode(frames, cfg, device, "hand", recon=True))
         api_p, pp, _, dt_p = api_encode(frames, cfg, device, "plain")
     finally:
         del os.environ["SVT_TPU_TIMING"]
@@ -1310,8 +1467,9 @@ def phase_device_cdef(device, hd: dict, inter: dict) -> None:
     """Phase 9: phase 6's 1080p keyframe group (cdef_group_device) and
     phase 5's 720p KF + mini-GOP (the per-frame entry) with
     SVT_TPU_DEVICE_CDEF=1: one frame of each held against the host's
-    exact direction search and filter; the TUs against the native C
-    backend's run of the same phase, and both "cdef" stage seconds."""
+    exact direction search and filter; the TUs against the CDEF kernel's
+    run of the same phase (bit-exact with the native C), and both "cdef"
+    stage seconds."""
     words = []
     os.environ["SVT_TPU_DEVICE_CDEF"] = "1"
     os.environ["SVT_TPU_TIMING"] = "1"
@@ -1333,8 +1491,8 @@ def phase_device_cdef(device, hd: dict, inter: dict) -> None:
             diff = sum(a != b for a, b in zip(tus, base["tus"]))
             words.append(
                 f"{tag}: {held}; {diff} of {len(tus)} TUs differ from the "
-                f"native C backend's run; cdef {cdef_s:.4f} s on the card "
-                f"vs {base['cdef_s']:.4f} s native C; {len(tus)} TUs in "
+                f"CDEF kernel's run; cdef {cdef_s:.4f} s on the card "
+                f"vs {base['cdef_s']:.4f} s the kernel; {len(tus)} TUs in "
                 f"{dt:.3f} s")
     finally:
         del os.environ["SVT_TPU_DEVICE_CDEF"], os.environ["SVT_TPU_TIMING"]
@@ -1503,8 +1661,6 @@ def phase_intdct(device, inter: dict, hd: dict) -> dict:
     analysis batches card vs CPU; the frame analysis at 1080p. Returns
     the run's launch counts (the main path of this phase)."""
     import svt_av1_psyex_tpu_torch.device.intra as PI
-    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
-    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
 
     cfg = INTER
     frames = inter["frames"]
@@ -1515,12 +1671,10 @@ def phase_intdct(device, inter: dict, hd: dict) -> dict:
         encode_gop(frames, cfg["warmup_gop"], cfg, device, "hand")
         os.environ["SVT_TPU_TIMING"] = "1"
         try:
-            cuda_fullloop.launches = cuda_sad.launches = 0
             with recording_int_analysis(rec):
-                enc, tus, recons, dt, coded = encode_gop(
-                    frames, cfg["gop"], cfg, device, "hand")
-            launches = {"fullloop": cuda_fullloop.launches,
-                        "sad": cuda_sad.launches}
+                (enc, tus, recons, dt, coded), launches = counted(
+                    lambda: encode_gop(frames, cfg["gop"], cfg, device,
+                                       "hand"))
         finally:
             del os.environ["SVT_TPU_TIMING"]
         check(launches["fullloop"] == 0, f"intdct: the fullloop kernel "
@@ -1554,24 +1708,31 @@ def phase_intdct(device, inter: dict, hd: dict) -> dict:
     return launches
 
 
-def counted(fn):
-    """fn() with both kernels' launch counts set to 0 just before it;
-    returns its result and the counts read just after it."""
-    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop as cuda_fullloop
-    from svt_av1_psyex_tpu_torch.ops.cuda import sad as cuda_sad
+def kernel_modules() -> dict:
+    """The wrapper module of each kernel, by name."""
+    from svt_av1_psyex_tpu_torch.ops.cuda import cdef, fullloop, sad
 
-    cuda_fullloop.launches = cuda_sad.launches = 0
+    return {"fullloop": fullloop, "sad": sad, "cdef": cdef}
+
+
+def counted(fn):
+    """fn() with every kernel's launch count set to 0 just before it;
+    returns its result and the counts read just after it."""
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
     out = fn()
-    return out, {"fullloop": cuda_fullloop.launches,
-                 "sad": cuda_sad.launches}
+    return out, {name: mod.launches for name, mod in mods.items()}
 
 
 def mesh_launches(tag: str, sharded: dict, single: dict,
                   shards: int) -> None:
-    """The sharded run launches each kernel once per shard where the
-    unsharded run launches it once."""
+    """The sharded run launches each analysis kernel once per shard where
+    the unsharded run launches it once, and CDEF (a frame's, after its
+    rows are gathered) as often as the unsharded run."""
     for name in KERNELS:
-        check(sharded[name] == single[name] * shards,
+        want = single[name] * (1 if name == "cdef" else shards)
+        check(sharded[name] == want,
               f"mesh: {tag}: {name} launched {sharded[name]} times "
               f"sharded, {single[name]} unsharded, {shards} shards")
     check(sharded["fullloop"] > 0, f"mesh: {tag}: no fullloop launch")
@@ -1858,13 +2019,12 @@ def first_packet_child() -> int:
             break
     dt = time.perf_counter() - t0
     check(pkt is not None and len(pkt.data) > 0, "first packet: none")
-    from svt_av1_psyex_tpu_torch.ops.cuda import fullloop, sad
-
     print(json.dumps({"first_packet_s": dt, "init_s": t_init,
                       "frames_sent": t + 1,
                       "sha256": hashlib.sha256(pkt.data).hexdigest(),
-                      "warm_launches": {"fullloop": fullloop.warm_launches,
-                                        "sad": sad.warm_launches}}))
+                      "warm_launches": {
+                          name: mod.warm_launches
+                          for name, mod in kernel_modules().items()}}))
     return 0
 
 
@@ -1935,7 +2095,8 @@ def main() -> int:
         return out
 
     measured = {"fullloop": timed("phase 3 (fullloop)", phase_kernels, device),
-                "sad": timed("phase 3 (sad)", phase_sad, device)}
+                "sad": timed("phase 3 (sad)", phase_sad, device),
+                "cdef": timed("phase 3 (cdef)", phase_cdef, device)}
     timed("phase 4 (slice)", phase_slice, device)
     inter = timed("phase 5 (inter)", phase_inter, device)
     hd = timed("phase 6 (1080p)", phase_hd, device)
@@ -1963,7 +2124,7 @@ def main() -> int:
         "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
         "bound_ms": measured[name]["bound_ms"],
         "bound_by": measured[name]["bound_by"],
-        # no single PyTorch call computes either kernel's function
+        # no single PyTorch call computes any kernel's function
         "library_ms": None}
         for name in KERNELS]}))
     print(smi)

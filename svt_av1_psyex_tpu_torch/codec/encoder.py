@@ -149,6 +149,7 @@ class Av1Encoder:
         self.timing: dict = {}
         self._warm_thread = None   # warm_device's thread, until joined
         self._warm_error = None    # what it raised
+        self._cdef_card = None     # ops.cuda.cdef.CdefFrames, at first use
         self.seq = seq
         self.preset = preset
         # screen-content tools: 0 off / 1 force / 2 auto-detect per KF
@@ -287,7 +288,7 @@ class Av1Encoder:
                     tf_windows: tuple = ()) -> None:
         """Start a background thread that pays this encode's first-use
         costs on the card while the host does other work: it builds and
-        loads both kernels if this encoder runs them (nvcc at first use,
+        loads the kernels this encoder runs (nvcc at first use,
         ops/cuda/build.py), then runs each device program the encode will
         use once, on a zero frame of the encode's size through the entry
         the encode calls it through, and drops the outputs, so that the
@@ -295,8 +296,9 @@ class Av1Encoder:
         exist before the first frame. The programs, in first-use order:
         the keyframe analysis, TPL over `tpl_frames` frames (0: the
         encode runs no TPL), the inter analysis (a forward and a backward
-        reference) and the temporal filter with each neighbour count in
-        `tf_windows`. Nothing starts it by default (api.encoder.
+        reference), the temporal filter with each neighbour count in
+        `tf_windows` and, where the CDEF kernel takes CDEF, its search and
+        apply. Nothing starts it by default (api.encoder.
         SvtAv1Encoder.warm_device says why).
 
         Does nothing on the CPU, for an encode the device MD cannot take
@@ -328,12 +330,14 @@ class Av1Encoder:
         from .tf import temporal_filter
         from .tpl import run_tpl
 
+        seq, bd = self.seq, self.seq.bit_depth
+        cdef_card = seq.enable_cdef and self._cdef_on_card()
         if self.kernels == "hand":   # a plain encode builds no kernel
             from ..ops.cuda import build
 
-            for name in ("fullloop", "sad"):
+            for name in ("fullloop", "sad") + (("cdef",) if cdef_card
+                                               else ()):
                 build.load(name)
-        seq, bd = self.seq, self.seq.bit_depth
         dt = np.uint8 if bd == 8 else np.uint16
         frame = [np.zeros((seq.height, seq.width), dt)] + [
             np.zeros(((seq.height + 1) >> 1, (seq.width + 1) >> 1), dt)
@@ -353,6 +357,17 @@ class Av1Encoder:
             kernels=self.kernels).numpy()
         for n in tf_windows:
             temporal_filter(frame, [frame] * n, 100, bd, device=self.device)
+        if cdef_card:
+            # CDEF on a zero frame of the recon's shape, every unit filtered
+            h, w = self.aligned_h, self.aligned_w
+            planes = [np.zeros((h, w), np.int32)] + [
+                np.zeros(((h >> 1) + 4, (w >> 1) + 4), np.int32)
+                for _ in frame[1:]]
+            self._pick_cdef()(
+                planes, [p.copy() for p in planes],
+                np.zeros((self.mi_rows, self.mi_cols), bool), self.mi_rows,
+                self.mi_cols, 100, lambda rate, dist: dist,
+                level=self._cdef_search_level, bit_depth=bd)
 
     def join_warm(self) -> None:
         """Wait for warm_device's thread, if one runs, and re-raise what
@@ -1118,11 +1133,9 @@ class Av1Encoder:
                     _group.append(st)
                     return st
 
-                _cdef = self._pick_cdef()
-                res = _cdef(
+                res = self._cdef_frame(
                     [p.recon for p in pctx], [p.src for p in pctx], skip_g,
-                    self.mi_rows, self.mi_cols, fr.base_q_idx, rd_fn,
-                    level=self._cdef_search_level, bit_depth=seq.bit_depth)
+                    self.mi_rows, self.mi_cols, fr.base_q_idx, rd_fn)
                 self._apply_cdef_result(fr, tw, res)
                 if timing:
                     t0 = self._tick("cdef", t0)
@@ -1134,20 +1147,54 @@ class Av1Encoder:
             return st
         return self._finalize_frame(st)
 
+    def _cdef_on_card(self) -> bool:
+        """Whether _pick_cdef gives the CDEF kernel's frame runner: on a
+        CUDA device unless SVT_TPU_DEVICE_CDEF=1 or SVT_TPU_HOST_CDEF=1."""
+        return (self.device.type == "cuda"
+                and os.environ.get("SVT_TPU_DEVICE_CDEF") != "1"
+                and os.environ.get("SVT_TPU_HOST_CDEF") != "1")
+
     def _pick_cdef(self):
-        """CDEF backend: the device search and apply on self.device with
-        SVT_TPU_DEVICE_CDEF=1, else native C when it builds (unless
-        SVT_TPU_HOST_CDEF=1), else numpy. All share the full-grid search
-        contract."""
+        """CDEF backend: the device search and apply of device/cdef.py on
+        self.device with SVT_TPU_DEVICE_CDEF=1; else on a CUDA device the
+        CDEF kernel (ops/cuda/cdef.py; its plain version under
+        kernels="plain") unless SVT_TPU_HOST_CDEF=1; else native C when it
+        builds (unless SVT_TPU_HOST_CDEF=1), else numpy. All share the
+        full-grid search contract, and all but the first its results."""
         if os.environ.get("SVT_TPU_DEVICE_CDEF") == "1":
             from ..device.cdef import cdef_search_frame_device
 
             return partial(cdef_search_frame_device, device=self.device)
+        if self._cdef_on_card():
+            self.join_warm()
+            if self._cdef_card is None:
+                from ..ops.cuda.cdef import CdefFrames
+
+                self._cdef_card = CdefFrames(self.device, self.kernels)
+            return self._cdef_card.search_frame
         if os.environ.get("SVT_TPU_HOST_CDEF") != "1" and cdefc.available():
             return cdefc.cdef_search_frame_c
         from ..ops.cdef import cdef_search_frame
 
         return cdef_search_frame
+
+    def _cdef_frame(self, recon_planes, src_planes, skip_g, mi_rows: int,
+                    mi_cols: int, base_q_idx: int, rdcost_fn):
+        """One frame's CDEF search and apply through _pick_cdef's backend
+        (recon_planes filtered in place; its result). Under the stage
+        clock the frame counts in "n.cdef_frames" and, when the CUDA
+        kernel took it, in "n.cdef_device"."""
+        cdef = self._pick_cdef()
+        res = cdef(recon_planes, src_planes, skip_g, mi_rows, mi_cols,
+                   base_q_idx, rdcost_fn, level=self._cdef_search_level,
+                   bit_depth=self.seq.bit_depth)
+        if self.timed:
+            card = self._cdef_card
+            self._note("n.cdef_frames", 1)
+            self._note("n.cdef_device", int(
+                card is not None and card.uses_kernel
+                and cdef == card.search_frame))
+        return res
 
     @staticmethod
     def _apply_cdef_result(fr, tw, res) -> None:
@@ -1575,13 +1622,7 @@ class Av1Encoder:
                 results = cdef_group_device(jobs, self._cdef_search_level,
                                             bd, device=self.device)
             else:
-                _cdef = self._pick_cdef()
-                results = [
-                    _cdef(j["recon_planes"], j["src_planes"], j["skip_g"],
-                          j["mi_rows"], j["mi_cols"], j["base_q_idx"],
-                          j["rdcost_fn"], level=self._cdef_search_level,
-                          bit_depth=bd)
-                    for j in jobs]
+                results = [self._cdef_frame(**j) for j in jobs]
             it = iter(results)
             for st in group:
                 if st["cdef_job"] is not None:

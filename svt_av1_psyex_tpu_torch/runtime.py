@@ -82,3 +82,22 @@ def sad_impl(kernels: str = "hand"):
     from .ops.cuda.sad import sad_lattice
 
     return sad_lattice
+
+
+def cdef_impl(kernels: str = "hand"):
+    """CDEF's (dirs, search, apply) functions for `kernels`, as
+    fullloop_impl: "hand" the wrappers of the CUDA kernel
+    (ops/cuda/cdef.py), "plain" the plain PyTorch version
+    (ops/cdef_ref.py)."""
+    check_kernels(kernels)
+    if kernels == "plain":
+        from .ops.cdef_ref import (
+            cdef_apply_ref,
+            cdef_dirs_ref,
+            cdef_search_ref,
+        )
+
+        return cdef_dirs_ref, cdef_search_ref, cdef_apply_ref
+    from .ops.cuda.cdef import cdef_apply, cdef_dirs, cdef_search
+
+    return cdef_dirs, cdef_search, cdef_apply

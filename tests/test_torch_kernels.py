@@ -177,6 +177,48 @@ def test_registry_and_device_handling(monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
 
 
+def test_cdef_registry_and_wrappers_on_cpu():
+    """runtime.cdef_impl names the plain version and the kernel's
+    wrappers; on CPU tensors the wrappers run the plain version and count
+    no launch."""
+    from test_torch_cdef_kernel import _frame
+
+    from svt_av1_psyex_tpu_torch.ops import cdef_ref
+    from svt_av1_psyex_tpu_torch.ops.cuda import cdef as cuda_cdef
+
+    assert runtime.cdef_impl("plain") == (
+        cdef_ref.cdef_dirs_ref, cdef_ref.cdef_search_ref,
+        cdef_ref.cdef_apply_ref)
+    assert runtime.cdef_impl("hand") == (
+        cuda_cdef.cdef_dirs, cuda_cdef.cdef_search, cuda_cdef.cdef_apply)
+    with pytest.raises(ValueError):
+        runtime.cdef_impl("triton")
+    recon, src, skip_g = _frame(5, 10, 18, 8, False, "random")
+    mask = cdef_ref.unit_mask(skip_g, 10, 18)
+    planes = [torch.from_numpy(p) for p in recon]
+    srcs = [torch.from_numpy(p) for p in src]
+    args = ((40, 72), mask.shape, 0)
+    units = torch.from_numpy(cdef_ref.search_units(mask, 5))
+    cands = torch.tensor([0, 2, 28, 30], dtype=torch.int32)
+    before = cuda_cdef.launches
+    dirs, var = cuda_cdef.cdef_dirs(planes[0], *args)
+    want = cdef_ref.cdef_dirs_ref(planes[0], *args)
+    assert torch.equal(dirs, want[0]) and torch.equal(var, want[1])
+    got = cuda_cdef.cdef_search(planes, srcs, (40, 72), units, mask.shape,
+                                dirs, var, cands, 5, 4, 0)
+    want = cdef_ref.cdef_search_ref(planes, srcs, (40, 72), units,
+                                    mask.shape, dirs, var, cands, 5, 4, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gi = torch.full((mask.size,), 30, dtype=torch.int32)
+    mask_t = torch.from_numpy(mask)
+    got = cuda_cdef.cdef_apply(planes, (40, 72), mask_t, dirs, var, gi, gi,
+                               5, 4, 0)
+    want = cdef_ref.cdef_apply_ref(planes, (40, 72), mask_t, dirs, var, gi,
+                                   gi, 5, 4, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert cuda_cdef.launches == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -336,3 +378,141 @@ def test_inter_lattice_kernels_vs_plain_on_card(cuda_device):
         for f in ("mv_y", "mv_x", "mv_y1", "mv_x1"):
             assert np.array_equal(a[f][same], b[f][same]), (blk, f)
         assert np.allclose(a["j"], b["j"], rtol=5e-3, atol=50)
+
+
+# ---- CDEF (ops/cuda/cdef.cu): bit-exact with its plain version and the C
+
+
+def _cdef_case(mi_rows, mi_cols, bit_depth, level, seed):
+    """One frame of tests/test_torch_cdef_kernel.py's kind, its C result
+    and the tables and planes the C computed (native/cdefc.py with its
+    library wrapped)."""
+    from test_torch_cdef_kernel import _frame, _rd_fn, _Spy
+
+    from svt_av1_psyex_tpu_torch.native import cdefc
+
+    if not cdefc.available():
+        pytest.skip("the native C tier does not build here")
+    recon, src, skip_g = _frame(seed, mi_rows, mi_cols, bit_depth, False,
+                                "random")
+    q = 160
+    spy = _Spy(cdefc._lib())
+    rec_c = [p.copy() for p in recon]
+    orig = cdefc._lib
+    cdefc._lib = lambda: spy
+    try:
+        want = cdefc.cdef_search_frame_c(rec_c, src, skip_g, mi_rows, mi_cols,
+                                         q, _rd_fn(q, bit_depth),
+                                         level=level, bit_depth=bit_depth)
+    finally:
+        cdefc._lib = orig
+    return dict(recon=recon, src=src, skip_g=skip_g, q=q, want=want,
+                rec_c=rec_c, seen=spy.seen, rd_fn=_rd_fn(q, bit_depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mi_rows, mi_cols, bit_depth", [
+    (180, 320, 8),     # the 720p cell's frame
+    (270, 480, 10),    # the 1080p cell's
+    (34, 50, 10),      # ragged: 200x136
+])
+def test_cdef_kernel_matches_plain_and_c_on_card(cuda_device, mi_rows,
+                                                 mi_cols, bit_depth):
+    """Directions, variances, both mse tables and the filtered planes of
+    the kernel equal the plain version's on the card and the C's, and the
+    frame runner returns the C's result and planes, through three
+    launches."""
+    from svt_av1_psyex_tpu_torch.ops import cdef_ref
+    from svt_av1_psyex_tpu_torch.ops.cdef import candidate_strengths
+    from svt_av1_psyex_tpu_torch.ops.cuda import cdef as cuda_cdef
+
+    level, cs = 5, bit_depth - 8
+    case = _cdef_case(mi_rows, mi_cols, bit_depth, level, mi_rows)
+    seen = case["seen"]
+    mask = cdef_ref.unit_mask(case["skip_g"], mi_rows, mi_cols)
+    grid, coded = mask.shape, (mi_rows * 4, mi_cols * 4)
+    ydamp, cdamp, _ = seen["damp"]
+
+    def dev(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                for a in arrays]
+
+    planes, srcs = dev(case["recon"]), dev(case["src"])
+    units, cands, mask_t, y_gi, uv_gi = dev([
+        cdef_ref.search_units(mask, level),
+        np.asarray(candidate_strengths(level), np.int32), mask,
+        seen["y_gi"], seen["uv_gi"]])
+    out = {}
+    for kernels in ("hand", "plain"):
+        dirs_fn, search_fn, apply_fn = runtime.cdef_impl(kernels)
+        before = cuda_cdef.launches
+        dirs, var = dirs_fn(planes[0], coded, grid, cs)
+        mse0, mse1 = search_fn(planes, srcs, coded, units, grid, dirs, var,
+                               cands, ydamp, cdamp, cs)
+        filt = apply_fn(planes, coded, mask_t, dirs, var, y_gi, uv_gi,
+                        ydamp, cdamp, cs)
+        torch.cuda.synchronize()
+        assert cuda_cdef.launches == before + (3 if kernels == "hand" else 0)
+        out[kernels] = [t.cpu().numpy() for t in (dirs, var, mse0, mse1)] + [
+            [p.cpu().numpy() for p in filt]]
+    for kernels in ("hand", "plain"):
+        dirs, var, mse0, mse1, filt = out[kernels]
+        assert np.array_equal(dirs, seen["dirs"]), kernels
+        assert np.array_equal(var, seen["var"]), kernels
+        assert np.array_equal(mse0.reshape(-1), seen["mse0"]), kernels
+        assert np.array_equal(mse1.reshape(-1), seen["mse1"]), kernels
+        for got, want in zip(filt, case["rec_c"]):
+            assert np.array_equal(got, want), kernels
+
+    for kernels in ("hand", "plain"):
+        frames = cuda_cdef.CdefFrames(cuda_device, kernels)
+        for _ in range(2):   # the second on the staging buffers kept
+            rec = [p.copy() for p in case["recon"]]
+            before = cuda_cdef.launches
+            got = frames.search_frame(rec, case["src"], case["skip_g"],
+                                      mi_rows, mi_cols, case["q"],
+                                      case["rd_fn"], level=level,
+                                      bit_depth=bit_depth)
+            assert cuda_cdef.launches == before + (3 if kernels == "hand"
+                                                   else 0)
+            want = case["want"]
+            assert got[:3] == want[:3] and got[4] == want[4], kernels
+            assert np.array_equal(got[3], want[3]), kernels
+            for a, b in zip(rec, case["rec_c"]):
+                assert np.array_equal(a, b), kernels
+
+
+@pytest.mark.cuda
+def test_cdef_kernel_bad_input_and_refused_launch_on_card(cuda_device,
+                                                          monkeypatch):
+    from svt_av1_psyex_tpu_torch.ops.cuda import cdef as cuda_cdef
+
+    z = dict(dtype=torch.int32, device=cuda_device)
+    y = torch.zeros((64, 64), **z)
+    with pytest.raises(ValueError):
+        cuda_cdef.cdef_dirs(y, (72, 64), (8, 8), 0)   # smaller than coded
+    with pytest.raises(ValueError):
+        cuda_cdef.cdef_dirs(y.t(), (64, 64), (8, 8), 0)
+    with pytest.raises(ValueError):
+        cuda_cdef.cdef_dirs(y[:, :32], (64, 32), (8, 4), 0)
+    with pytest.raises(TypeError):
+        cuda_cdef.cdef_dirs(y.to(torch.int16), (64, 64), (8, 8), 0)
+    with pytest.raises(ValueError):
+        cuda_cdef.cdef_search([y], [y.cpu()], (64, 64), y[0, :1], (8, 8),
+                              y.reshape(-1), y.reshape(-1), y[0, :6], 5, 4,
+                              0)
+
+    class Refused:
+        """A library whose launches the card refuses."""
+
+        def svt_cdef_dirs_launch(self, *a):
+            return 1
+
+        def svt_cdef_error_string(self, err):
+            return b"invalid argument"
+
+    monkeypatch.setattr(cuda_cdef, "_lib", lambda: Refused())
+    before = cuda_cdef.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cuda_cdef.cdef_dirs(y, (64, 64), (8, 8), 0)
+    assert cuda_cdef.launches == before

@@ -27,7 +27,8 @@ PRESET, CRF, HL = 6, 30, 2
 SPANS = {"tf", "tpl", "begin", "device_wait", "pick", "commit",
          "commit_leaf", "lf_grids", "dlf", "cdef", "lr", "ec"}
 NOTES = {"begin.dispatch", "lr.build", "lr.exact", "n.ec_symbols",
-         "n.ec_calls", "n.ec_sbs", "n.ec_sbs_native"}
+         "n.ec_calls", "n.ec_sbs", "n.ec_sbs_native", "n.cdef_frames",
+         "n.cdef_device"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,6 +167,15 @@ def test_each_part_is_at_most_its_stage(runs):
     assert timing["n.ec_symbols"] > timing["n.ec_calls"] > 0
     assert all(isinstance(timing[k], int) for k in NOTES
                if k.startswith("n."))
+
+
+def test_cdef_counts_every_coded_frame_and_no_kernel_on_the_cpu(runs):
+    """Every coded frame of the clip runs CDEF's search: each counts in
+    n.cdef_frames, and none in n.cdef_device, which counts the frames the
+    CUDA kernel took (ops/cuda/cdef.py)."""
+    timing = runs["on"][1]
+    assert timing["n.cdef_frames"] == len(runs["on"][3]) >= N
+    assert timing["n.cdef_device"] == 0
 
 
 def test_commit_leaf_spans_exactly_the_frames_the_c_commit_declines(runs):
